@@ -5,22 +5,34 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. require a CUDA device and print `nvidia-smi`'s name and power limit;
-  2. build the hand-written CUDA kernels from medgp_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1 gram, K3 chol_solve, K5 tri_inv) against its plain
-     PyTorch twin on the card at canonical width (LMC-SM Q=5, D=24, R=8),
-     including a non-SPD system and the jitter-retry loop, and time both
-     with CUDA events;
-  4. run the test stage end to end through the port's CLI (`generate`, then
-     `test` in mean_wo_update mode) on a 64-patient synthetic cohort with
-     the canonical kernel, check every patient's outputs and that the main
-     path launched every kernel, and re-run one bucket through the twins
-     and in float64;
-  5. print one JSON line with the kernels' numbers, then the result line.
+  2. build the hand-written CUDA kernels from medgp_tpu_torch/csrc with nvcc
+     (one nvcc per source, started together);
+  3. hold each kernel (K1 gram, K3 chol_solve, K5 tri_inv, K4 qmat, K2 the
+     gram backward) against its plain PyTorch twin on the card at canonical
+     width (LMC-SM Q=5, D=24, R=8), including a non-SPD system and the
+     jitter-retry loop; time kernel, twin and, where one exists, the one
+     PyTorch call for the same function, with CUDA events;
+  4. one canonical objective+gradient batch (B=128, n=512, bench.py's
+     protocol) through the kernels against the plain path, and its
+     evaluations per second; then the restart screen at one full chunk,
+     one objective+gradient evaluation at a full train bucket and one
+     test-stage chunk, as utils/hbm.py sizes them at n=512, each with its
+     peak device memory against the free memory its budget was taken from;
+  5. drive the port's CLI on a 64-patient synthetic cohort: `generate`,
+     `test` (mean_wo_update), `train` (budgets cut, see TRAIN_OPT), `test
+     --mode mean_w_update`; each run with the launch counters set to 0
+     just before and read just after, so every kernel of each path must
+     have launched, and its peak device memory read; check every
+     patient's outputs, train a second time
+     (the thetas must repeat bitwise), and re-run one bucket of each test
+     mode through the twins (and the first in float64);
+  6. print one JSON line with the kernels' numbers, then the result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -34,17 +46,21 @@ import torch
 from medgp_tpu_torch.cli.main import main as cli
 from medgp_tpu_torch.config.experiment import ExperimentConfig
 from medgp_tpu_torch.data import formats
-from medgp_tpu_torch.data.cohort import pack_patients
+from medgp_tpu_torch.data.cohort import load_cohort, pack_patients
+from medgp_tpu_torch.data.inits import default_bounds, random_inits
 from medgp_tpu_torch.data.synthetic import (
     cluster_thetas, sample_cluster_params, sample_cohort,
     write_reference_format_cohort,
 )
+from medgp_tpu_torch.infer.map_train import screen_inits
 from medgp_tpu_torch.infer.online import online_impute, unique_times
-from medgp_tpu_torch.models.gp import PatientData
-from medgp_tpu_torch.models.params import LMCSMSpec
+from medgp_tpu_torch.models.gp import PatientData, objective_and_grad
+from medgp_tpu_torch.models.params import LMCSMSpec, theta_from_numpy
+from medgp_tpu_torch.models.priors import hier_gamma_prior
 from medgp_tpu_torch.ops import cuda_build, cuda_chol, cuda_gram
 from medgp_tpu_torch.ops.nlml import jittered_chol_solve
-from medgp_tpu_torch.parallel.runner import MAX_BATCH
+from medgp_tpu_torch.parallel.runner import MAX_BATCH, _test_prior, train_cohort
+from medgp_tpu_torch.utils import hbm
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".chip_smoke")
@@ -64,6 +80,44 @@ LINV_TOL = 1e-4
 # diag(K_S^{-1}) of systems with condition numbers up to ~1e5 in float32.
 PRED_TOL = 1e-2
 CI_FLIP_MAX = 1e-3  # share of CI flags allowed to flip at the 1.96-sigma edge
+# K4: relative to max |out|, the bound of alpha and L^{-1} (1e-4): the
+#     kernel inverts L by 32-wide blocks and sums the product in tiles.
+K4_REL = 1e-4
+# K2 and the objective's gradient: the Pallas gram VJP's bound
+#     (tests/test_pallas_gram.py:83), relative to the gradient's scale;
+#     the objective's value 1e-4 relative (tests/test_pallas_chol.py:134).
+GRAD_TOL = 2e-3
+VALUE_REL = 1e-4
+
+# The train stage of the smoke, cut to run in seconds: 16 restarts (of
+# 1,000) and top_iteration_num 2 (of 40), i.e. two varEM warm rounds of 100
+# SCG evaluations each; the rest is examples/opt_prior2.json.
+TRAIN_OPT = dict(
+    random_init_num=16, random_seed=718, top_iteration_num=2,
+    iteration_num_per_update=30, online_learn_rate=1e-5, online_momentum=0.9,
+)
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): fp32
+# outside the tensor cores, and device memory. bound_ms is the larger of the two
+# times for the function's operations and bytes (each input read once,
+# each output written once), counted from the inputs' shapes.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per (entry, component) of the gram and its backward, as the
+# kernels' formulas spell them out (csrc/gram.cuh): the forward's distance,
+# its square, the exponent, exp, the rank-2 cosine (3), the coefficient
+# product and the sum; the backward's about twice that (both partials).
+GRAM_OPS = 9
+GRAM_BWD_OPS = 20
+
+# Launch counters of the five kernels' wrappers.
+KERNELS = {
+    "gram_lmcsm": cuda_gram.gram_lmcsm_fused,
+    "gram_lmcsm_bwd": cuda_gram.gram_lmcsm_bwd,
+    "chol_solve": cuda_chol.chol_solve,
+    "qmat": cuda_chol.qmat,
+    "tri_inv": cuda_chol.tri_inv,
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -73,6 +127,51 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for `flops` fp32 operations
+    and `nbytes` of device-memory traffic on the card's published peaks."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# Each kernel's wrapper and its plain twin, by the module attribute that the
+# port's modules call.
+TWINS = (
+    (cuda_gram, "gram_lmcsm_fused", cuda_gram.gram_lmcsm_plain),
+    (cuda_gram, "gram_lmcsm_bwd", cuda_gram.gram_lmcsm_bwd_plain),
+    (cuda_chol, "chol_solve", cuda_chol.chol_solve_plain),
+    (cuda_chol, "qmat", cuda_chol.qmat_plain),
+    (cuda_chol, "tri_inv", cuda_chol.tri_inv_plain),
+)
+
+
+@contextlib.contextmanager
+def twins():
+    """Run a path of the port through the kernels' plain twins on the card:
+    each wrapper's module attribute names its twin for the duration. No
+    launch counter may move meanwhile, which shows that nothing reached a
+    kernel past the swap."""
+    before = read_launches()
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in TWINS]
+    for mod, name, twin in TWINS:
+        setattr(mod, name, twin)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    check(read_launches() == before, "a kernel launched inside twins()")
+
+
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def cuda_ms(fn, reps):
@@ -120,10 +219,16 @@ def compare_gram(rng, dev, Bt, n, masked):
           f"K1 n={n} masked={masked}: max abs err {err} > {K1_REL} * {scale}")
     ms = cuda_ms(lambda: cuda_gram.gram_lmcsm_fused(*args, mask=m), 20)
     plain_ms = cuda_ms(lambda: cuda_gram.gram_lmcsm_plain(*args, mask=m), 5)
+    bound_ms, bound_by = bound(
+        GRAM_OPS * Bt * n * n * Q,
+        4 * Bt * n * n + 4 * Bt * n * (3 if masked else 2) + 4 * Bt * Q * (D * D + 2),
+    )
     print(f"K1 gram B={Bt} n={n} masked={masked}: max_abs_err={err:.3e} "
           f"(tol {K1_REL:g} x max|K| = {K1_REL * scale:.3e}) "
-          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def spd_batch(gen, dev, Bt, n):
@@ -167,7 +272,8 @@ def compare_chol(gen, dev, Bt, n):
 
     # the retry loop recovers member 1 at the same multiplier either way
     Lr, ar, dr, okr, mr = jittered_chol_solve(K, y, noise, 10)
-    Lq, aq, _, okq, mq = jittered_chol_solve(K, y, noise, 10, plain=True)
+    with twins():
+        Lq, aq, _, okq, mq = jittered_chol_solve(K, y, noise, 10)
     check(bool(okr.all()) and bool(okq.all()), f"retry n={n}: not all recovered")
     check(torch.equal(mr, mq) and int(mr[1]) == 3 and int(mr.max()) == 3,
           f"retry n={n}: multipliers {mr.tolist()} vs twin {mq.tolist()}")
@@ -189,33 +295,279 @@ def compare_chol(gen, dev, Bt, n):
     return K, noise, y, Lr, dr, errs
 
 
+def chol_library(K, noise, y):
+    """The PyTorch calls for K3's function: factor, then solve."""
+    L, _ = torch.linalg.cholesky_ex(K + torch.diag_embed(noise))
+    return L, torch.cholesky_solve(y[..., None], L)
+
+
 def time_chol(K, noise, y, L, linvd, reps):
+    Bt, n, _ = K.shape
+    eye = torch.eye(n, device=K.device)
+    chol_bound = bound(Bt * (n**3 / 3 + 4 * n * n), 4 * Bt * (2 * n * n + 4 * n + 32 * n))
+    tri_bound = bound(Bt * n**3 / 3, 4 * Bt * (2 * n * n + 32 * n))
     return dict(
         chol_ms=cuda_ms(lambda: cuda_chol.chol_solve(K, noise, y), reps),
         chol_plain_ms=cuda_ms(lambda: cuda_chol.chol_solve_plain(K, noise, y), reps),
+        chol_library_ms=cuda_ms(lambda: chol_library(K, noise, y), reps),
+        chol_bound_ms=chol_bound[0], chol_bound_by=chol_bound[1],
         tri_ms=cuda_ms(lambda: cuda_chol.tri_inv(L, linvd), reps),
         tri_plain_ms=cuda_ms(lambda: cuda_chol.tri_inv_plain(L, linvd), reps),
+        tri_library_ms=cuda_ms(
+            lambda: torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False),
+            reps),
+        tri_bound_ms=tri_bound[0], tri_bound_by=tri_bound[1],
     )
 
 
-def run_slice(dev):
-    """Stage the cohort, `generate` and `test` through the CLI; returns
-    (cfg, seconds, counters, outputs)."""
+def compare_qmat(gen, dev, Bt, n):
+    """K4 against its twin on a factor from K3, at training's shapes."""
+    A = torch.randn((Bt, n, n), generator=gen, device=dev)
+    K = A @ A.mT / n + 0.5 * torch.eye(n, device=dev)
+    del A
+    noise = torch.full((Bt, n), 0.1, device=dev)
+    y = torch.randn((Bt, n), generator=gen, device=dev)
+    L, alpha, linvd = cuda_chol.chol_solve(K, noise, y)
+    del K
+    coef = 0.5 * torch.rand(Bt, generator=gen, device=dev) + 0.25
+    out = cuda_chol.qmat(L, linvd, alpha, coef)
+    want = cuda_chol.qmat_plain(L, linvd, alpha, coef)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(out).all()), f"K4 n={n}: non-finite output")
+    check(torch.equal(out, out.mT), f"K4 n={n}: output not symmetric")
+    check(err <= K4_REL * scale, f"K4 B={Bt} n={n}: max abs err {err} > "
+          f"{K4_REL} * {scale}")
+    del out, want
+
+    def library():
+        Kinv = torch.cholesky_inverse(L)
+        return coef[:, None, None] * (Kinv - alpha[:, :, None] * alpha[:, None, :])
+
+    reps = 5 if Bt <= 128 else 2
+    bound_ms, bound_by = bound(Bt * 2 * n**3 / 3, 4 * Bt * (2 * n * n + 33 * n + 1))
+    res = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: cuda_chol.qmat(L, linvd, alpha, coef), reps),
+        plain_ms=cuda_ms(lambda: cuda_chol.qmat_plain(L, linvd, alpha, coef), reps),
+        library_ms=cuda_ms(library, reps),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    print(f"K4 qmat B={Bt} n={n}: max_abs_err={err:.3e} (tol {K4_REL:g} x "
+          f"max|out| = {K4_REL * scale:.3e}); kernel {res['ms']:.3f} ms, twin "
+          f"{res['plain_ms']:.3f} ms, cholesky_inverse + rank-1 "
+          f"{res['library_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    return res
+
+
+def compare_gram_bwd(rng, dev, Bt, n, masked):
+    """K2 against its twin at canonical width, on a non-symmetric dK."""
+    spec = LMCSMSpec(Q, D, R)
+    p = sample_cluster_params(rng, spec)
+    t = np.zeros((Bt, n), np.float32)
+    meta = np.zeros((Bt, n), np.int32)
+    mask = np.zeros((Bt, n), np.float32)
+    for i in range(Bt):
+        k = int(rng.integers(n // 2 + 1, n + 1))
+        t[i, :k] = np.sort(rng.uniform(0, 168, size=k))
+        meta[i, :k] = rng.integers(0, D, size=k)
+        mask[i, :k] = 1.0
+    B = np.stack([p["A"][q] @ p["A"][q].T + np.diag(p["kappa"][q])
+                  for q in range(Q)]).astype(np.float32)
+    args = [
+        torch.as_tensor(t, device=dev), torch.as_tensor(meta, device=dev),
+        torch.as_tensor(np.broadcast_to(B, (Bt, Q, D, D)).copy(), device=dev),
+        torch.as_tensor(np.tile(p["mu"], (Bt, 1)).astype(np.float32), device=dev),
+        torch.as_tensor(np.tile(p["v"], (Bt, 1)).astype(np.float32), device=dev),
+    ]
+    dK = torch.randn((Bt, n, n), generator=torch.Generator(device=dev).manual_seed(n),
+                     device=dev)
+    m = torch.as_tensor(mask, device=dev) if masked else None
+    got = cuda_gram.gram_lmcsm_bwd(dK, *args, mask=m)
+    want = cuda_gram.gram_lmcsm_bwd_plain(dK, *args, mask=m)
+    again = cuda_gram.gram_lmcsm_bwd(dK, *args, mask=m)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("dB", "dmu", "dv"), got, want):
+        scale = float(w.abs().max())
+        errs[name] = float((g - w).abs().max())
+        check(bool(torch.isfinite(g).all()), f"K2 {name}: non-finite")
+        check(errs[name] <= GRAD_TOL * scale,
+              f"K2 B={Bt} n={n} masked={masked} {name}: max abs err "
+              f"{errs[name]} > {GRAD_TOL} * {scale}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K2: two launches on the same inputs differ (not deterministic)")
+    bound_ms, bound_by = bound(  # dK, t, meta [, mask] and B, mu, v in; dB, dmu, dv out
+        GRAM_BWD_OPS * Bt * n * n * Q,
+        4 * Bt * n * n + 4 * Bt * n * (3 if masked else 2) + 2 * 4 * Bt * Q * (D * D + 2),
+    )
+    res = dict(
+        max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: cuda_gram.gram_lmcsm_bwd(dK, *args, mask=m), 10),
+        plain_ms=cuda_ms(lambda: cuda_gram.gram_lmcsm_bwd_plain(dK, *args, mask=m), 3),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+    )
+    print(f"K2 gram_bwd B={Bt} n={n} masked={masked}: max abs err dB "
+          f"{errs['dB']:.3e}, dmu {errs['dmu']:.3e}, dv {errs['dv']:.3e} (tol "
+          f"{GRAD_TOL:g} x each scale), deterministic; kernel {res['ms']:.3f} ms, "
+          f"twin {res['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return res
+
+
+def objective_batch(dev, batch=128, n=512, steps=12):
+    """bench.py's objective+gradient protocol (hier-gamma prior, random
+    data, 12 chained steps theta -= 1e-6 grad) through the kernels and
+    through the plain path; returns evaluations per second of each."""
+    spec = LMCSMSpec(Q, D, R)
+    data = random_patients(dev, batch, n, 1)
+    th = random_thetas(dev, spec, batch, 1)
+    f = objective_and_grad(spec, data, hier_gamma_prior(spec, beta_lam=0.01, device=dev))
+
+    def f_plain(x):
+        with twins():
+            return f(x)
+
+    v, g, ok = f(th)
+    v2, g2, _ = f(th)
+    vp, gp, okp = f_plain(th)
+    torch.cuda.synchronize()
+    check(bool(ok.all()) and bool(okp.all()), "objective batch: a failed evaluation")
+    # every kernel and the glue sum in a fixed order: SCG trajectories repeat
+    check(torch.equal(v, v2) and torch.equal(g, g2),
+          "objective batch: two evaluations of the same thetas differ")
+    v_err = float(((v - vp) / vp).abs().max())
+    g_err = float((g - gp).abs().max())
+    g_scale = float(gp.abs().max())
+    check(v_err <= VALUE_REL, f"objective batch: value rel err {v_err} > {VALUE_REL}")
+    check(g_err <= GRAD_TOL * g_scale,
+          f"objective batch: grad err {g_err} > {GRAD_TOL} * {g_scale}")
+
+    def chained(f):
+        x = th
+        for _ in range(steps):
+            _, gg, _ = f(x)
+            x = x - 1e-6 * gg
+        return x
+
+    rates = {}
+    for name, fn in (("kernels", f), ("plain", f_plain), ("kernels2", f)):
+        chained(fn)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = chained(fn)
+        check(bool(torch.isfinite(x).all()), "objective batch went non-finite")
+        torch.cuda.synchronize()
+        rates[name] = batch * steps / (time.perf_counter() - t0)
+    print(f"objective+gradient B={batch} n={n}: bitwise equal on repeat; kernels "
+          f"vs plain value rel err {v_err:.3e} (tol {VALUE_REL:g}), grad max abs "
+          f"err {g_err:.3e} (tol "
+          f"{GRAD_TOL:g} x {g_scale:.3e}); {rates['kernels']:.1f} and "
+          f"{rates['kernels2']:.1f} evals/s through the kernels, "
+          f"{rates['plain']:.1f} through the plain path")
+    return rates
+
+
+
+def random_patients(dev, batch, n, seed):
+    """bench.py's random padded-free batch: sorted times over 7 days,
+    uniform outputs, normal values."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 168.0, size=(batch, n)), 1).astype(np.float32)
+    meta = rng.integers(0, D, size=(batch, n)).astype(np.int32)
+    y = rng.normal(size=(batch, n)).astype(np.float32)
+    return PatientData(
+        t=torch.as_tensor(t, device=dev), y=torch.as_tensor(y, device=dev),
+        meta=torch.as_tensor(meta, device=dev),
+        mask=torch.ones((batch, n), device=dev),
+    )
+
+
+def random_thetas(dev, spec, batch, seed):
+    """bench.py's thetas: normal * 0.1, noise std 0.3."""
+    th = np.random.default_rng(seed).normal(size=(batch, spec.n_hyp)) * 0.1
+    th[:, :D] = np.log(0.3)
+    return torch.as_tensor(th.astype(np.float32), device=dev)
+
+
+def peak_bytes(fn):
+    """(free bytes before, peak bytes allocated above the start) of fn()."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info(0)[0]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return free0, torch.cuda.max_memory_allocated() - base
+
+
+def memory_budgets(dev, n=512, restarts=16):
+    """Fill three budgets of utils/hbm.py once each at n=512 and read the
+    peak of device memory: one restart-screen chunk (`screen_inits`, with
+    more (patient, restart) systems than `screen_chunk_systems` allows),
+    one train bucket of `train_batch_cap` patients (one objective+gradient
+    evaluation under the hier-gamma prior) and one test-stage chunk
+    (`online_impute` without updates over more (patient, timestamp) pairs
+    than `test_chunk_pairs` allows). Each must fit in the free memory its
+    budget was derived from; the bytes per system are printed beside the
+    derivation's count. Each budget is taken with the allocator's cache
+    emptied, as a fresh process would take it."""
+    spec = LMCSMSpec(Q, D, R)
+    out = {}
+    torch.cuda.empty_cache()
+    chunk = hbm.screen_chunk_systems(n, dev)
+    data = random_patients(dev, chunk // restarts + 1, n, 2)
+    inits = random_inits(SEED, spec, default_bounds(spec), restarts).to(dev)
+    free0, peak = peak_bytes(lambda: screen_inits(spec, data, inits))
+    out["screen"] = (chunk, free0, peak, hbm.SCREEN_BUFFERS_PER_SYSTEM, hbm.SCREEN_SHARE)
+    del data
+    torch.cuda.empty_cache()
+    cap = hbm.train_batch_cap(n, dev)
+    data = random_patients(dev, cap, n, 3)
+    th = random_thetas(dev, spec, cap, 3)
+    f = objective_and_grad(spec, data, hier_gamma_prior(spec, beta_lam=0.01, device=dev))
+    free0, peak = peak_bytes(lambda: f(th))
+    out["train"] = (cap, free0, peak, hbm.TRAIN_BUFFERS_PER_PATIENT, hbm.TRAIN_SHARE)
+    del data, th, f
+    torch.cuda.empty_cache()
+    pairs = hbm.test_chunk_pairs(n, dev)
+    data = random_patients(dev, 2 * pairs // n + 1, n, 4)  # n distinct times each
+    theta = random_thetas(dev, spec, 1, 4)[0]
+    free0, peak = peak_bytes(lambda: online_impute(
+        spec, theta, data, data.t, torch.ones_like(data.mask, dtype=torch.bool)))
+    out["test"] = (pairs, free0, peak, hbm.TEST_BUFFERS_PER_PAIR, hbm.TEST_SHARE)
+    del data
+    torch.cuda.empty_cache()
+    for name, (systems, free0, peak, buffers, share) in out.items():
+        per = peak / systems / (4 * n * n)
+        print(f"memory {name}: {systems} systems at n={n}, peak {peak / 2**30:.2f} "
+              f"GiB of {free0 / 2**30:.2f} GiB free ({peak / free0:.3f}; budget "
+              f"1/{share}); {per:.2f} (n, n) float32 arrays per system, derived "
+              f"{buffers}")
+        check(peak < free0, f"memory {name}: peak {peak} exceeds free {free0}")
+    return out
+
+
+def stage_cohort():
+    """Stage the 64-patient cohort and `generate` the experiment through the
+    CLI, with the mode kernel (cluster 0's ground truth) for "all" and
+    every fold; returns (cfg_path, cfg, recs, theta)."""
     spec = LMCSMSpec(Q, D, R)
     feature_config = os.path.join(ROOT, "examples", "feature_all.json")
     with open(feature_config) as f:
         features = [x["index"] for x in json.load(f)["feature_list"]]
     check(len(features) == D, f"{feature_config}: expected {D} features")
-    t0 = time.perf_counter()
     recs = sample_cohort(SEED, spec, 64, n_clusters=4, n_obs_range=(100, 400))
     write_reference_format_cohort(os.path.join(WORK, "data", "synth"), recs, features)
-    print(f"staged {len(recs)} patients ({sum(r.n_obs for r in recs)} observations) "
-          f"in {time.perf_counter() - t0:.1f} s")
+    print(f"staged {len(recs)} patients ({sum(r.n_obs for r in recs)} observations)")
+    opt_path = os.path.join(WORK, "opt_smoke.json")
+    with open(opt_path, "w") as f:
+        json.dump(TRAIN_OPT, f)
     cli([
         "generate", "--data-root", os.path.join(WORK, "data"),
         "--exp-root", os.path.join(WORK, "exp"), "--cohort", "synth",
-        "--feature-config", feature_config,
-        "--opt-config", os.path.join(ROOT, "examples", "opt_prior2.json"),
+        "--feature-config", feature_config, "--opt-config", opt_path,
         "--kernel", "LMC-SM", "--prior", "hier-gamma", "--Q", str(Q),
         "--R", str(R), "--eta", "0.01", "--beta-lam", "0.01",
         "--cv-fold-num", "10", "--exp-prefix", "smoke",
@@ -224,54 +576,125 @@ def run_slice(dev):
         WORK, "exp", "smoke_k7_q5_r8_p2_e0.01", "config", "exp_setup.json"
     )
     cfg = ExperimentConfig.from_json(cfg_path)
-    # mode kernel: cluster 0's ground truth, for "all" and every fold
     theta = cluster_thetas(SEED, spec, 4)[0]
     for fold in range(-1, cfg.cv_fold_num):
         formats.write_mode_kernel(cfg.exp_kernel_dir, fold, "gmm", theta, Q)
+    return cfg_path, cfg, recs, theta
 
-    for fn in (cuda_gram.gram_lmcsm_fused, cuda_chol.chol_solve, cuda_chol.tri_inv):
-        fn.launches = 0
+
+def run_path(name, argv, needs):
+    """One main-path run through the CLI with the launch counters set to 0
+    just before and read just after; every kernel in `needs` must have
+    launched. Returns (seconds, counts)."""
+    reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cli(["test", "--cfg", cfg_path, "--alg", "gmm", "--device", str(dev)])
+    cli(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counters = {
-        "gram_lmcsm": cuda_gram.gram_lmcsm_fused.launches,
-        "chol_solve": cuda_chol.chol_solve.launches,
-        "tri_inv": cuda_chol.tri_inv.launches,
-    }
+    counts = read_launches()
+    print(f"{name}: {seconds:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+    for k in needs:
+        check(counts[k] > 0, f"{name} never launched {k}")
+    return seconds, counts
 
+
+def check_test_outputs(cfg, recs, mode):
     outputs = {}
     for r in recs:
-        paths = formats.test_paths(cfg.exp_test_dir, "mean_wo_update", r.pan)
+        paths = formats.test_paths(cfg.exp_test_dir, mode, r.pan)
         missing = [k for k, p in paths.items() if not os.path.exists(p)]
-        check(not missing, f"{r.pan}: missing test outputs {missing}")
-        flag, res = formats.read_test_result(cfg.exp_test_dir, "mean_wo_update", r.pan)
-        check(flag == 1, f"{r.pan}: flag {flag}")
+        check(not missing, f"{r.pan}: missing {mode} outputs {missing}")
+        flag, res = formats.read_test_result(cfg.exp_test_dir, mode, r.pan)
+        check(flag == 1, f"{r.pan}: {mode} flag {flag}")
         for k in ("pred", "error", "var", "ci", "feature", "etime"):
-            check(len(res[k]) == r.n_obs, f"{r.pan}: {k} has {len(res[k])} "
-                  f"entries for {r.n_obs} observations")
+            check(len(res[k]) == r.n_obs, f"{r.pan}: {mode} {k} has "
+                  f"{len(res[k])} entries for {r.n_obs} observations")
         check(bool(np.all(np.isfinite(res["pred"]))), f"{r.pan}: non-finite pred")
         check(bool(np.all(np.isfinite(res["var"]))), f"{r.pan}: non-finite var")
         outputs[r.pan] = res
-    return cfg, recs, theta, seconds, counters, outputs
+    n_pred = sum(len(o["pred"]) for o in outputs.values())
+    err = np.concatenate([o["error"] for o in outputs.values()])
+    ci = np.concatenate([o["ci"] for o in outputs.values()])
+    print(f"test stage ({mode}): {len(outputs)} patients, {n_pred} predictions; "
+          f"MAE {np.mean(np.abs(err)):.4f}, CI coverage {100 * np.mean(ci):.2f}%")
+    return n_pred
+
+
+def check_train_outputs(cfg, recs):
+    spec = LMCSMSpec(Q, D, R)
+    n_var = 2 * Q * (D * R + R)
+    trained = 0
+    for r in recs:
+        p = formats.train_paths(cfg.exp_train_dir, r.pan)
+        for k in ("flag", "num", "init"):
+            check(os.path.exists(p[k]), f"{r.pan}: missing {os.path.basename(p[k])}")
+        check(int(formats.read_int_txt(p["num"])[0]) == r.n_obs, f"{r.pan}: train_num")
+        init = formats.read_double_bin(p["init"])
+        check(init.shape == (spec.n_hyp,) and bool(np.all(np.isfinite(init))),
+              f"{r.pan}: train_init_hyp")
+        if int(formats.read_int_txt(p["flag"])[0]):
+            trained += 1
+            theta = formats.read_double_bin(p["hyp"])
+            var = formats.read_double_bin(p["var_hyp"])
+            check(theta.shape == (spec.n_hyp,) and bool(np.all(np.isfinite(theta))),
+                  f"{r.pan}: train_hyp")
+            check(var.shape == (n_var,) and bool(np.all(np.isfinite(var))),
+                  f"{r.pan}: train_var_hyp")
+    print(f"train stage: {trained}/{len(recs)} patients trained, every written "
+          f"theta finite")
+    check(trained >= 0.9 * len(recs), f"only {trained}/{len(recs)} patients trained")
+    return trained
+
+
+def retrain_repeats(cfg, dev):
+    """Train the cohort again in this process: every kernel and the glue
+    sum in a fixed order, so the trained thetas equal the files bitwise."""
+    again = train_cohort(
+        cfg, load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list),
+        write=False, device=dev,
+    )
+    for pan, res in again.items():
+        p = formats.train_paths(cfg.exp_train_dir, pan)
+        check(res["flag"] == bool(formats.read_int_txt(p["flag"])[0]),
+              f"{pan}: a second train run flags it differently")
+        if res["flag"]:
+            check(np.array_equal(res["theta"], formats.read_double_bin(p["hyp"])),
+                  f"{pan}: a second train run gives another theta")
+    print(f"train stage: a second run repeats all {len(again)} thetas bitwise")
+
+
+def bucket_of(dev, recs, which):
+    b = which(pack_patients(recs, max_batch=MAX_BATCH, device=dev))
+    ut = np.zeros((len(b), b.n_max), np.float32)
+    uv = np.zeros((len(b), b.n_max), bool)
+    for i in range(len(b)):
+        ut[i], uv[i] = unique_times(b.t[i], b.mask[i], pad_to=b.n_max)
+    return b, ut, uv
+
+
+def compare_bucket(label, ker, twin):
+    valid = ker.valid
+    check(torch.equal(valid, twin.valid), f"{label}: valid masks differ")
+    d_pred = float((ker.pred - twin.pred)[valid].abs().max())
+    d_var = float(((ker.var - twin.var) / twin.var)[valid].abs().max())
+    flips = float((ker.ci != twin.ci)[valid].float().mean())
+    check(d_pred <= PRED_TOL, f"{label}: predictions differ by {d_pred}")
+    check(d_var <= PRED_TOL, f"{label}: variances differ by {d_var} (relative)")
+    check(flips <= CI_FLIP_MAX, f"{label}: {flips} of the CI flags differ")
+    return d_pred, d_var, flips, int(valid.sum())
 
 
 def recheck_bucket(cfg, recs, theta, dev):
     """One bucket of the test stage: kernels vs twins on the card, both vs
     a float64 run of the twins."""
     spec = LMCSMSpec(Q, D, R)
-    cv = cfg.cv_assign()
-    fold0 = [r for r, f in zip(recs, cv) if f == 0]
-    b = max(pack_patients(fold0, max_batch=MAX_BATCH, device=dev),
-            key=lambda x: x.n_max)
-    ut = np.zeros((len(b), b.n_max), np.float32)
-    uv = np.zeros((len(b), b.n_max), bool)
-    for i in range(len(b)):
-        ut[i], uv[i] = unique_times(b.t[i], b.mask[i], pad_to=b.n_max)
+    fold0 = [r for r, f in zip(recs, cfg.cv_assign()) if f == 0]
+    b, ut, uv = bucket_of(dev, fold0, lambda bs: max(bs, key=lambda x: x.n_max))
 
-    def run(dtype, plain):
+    def run(dtype):
         data = PatientData(
             t=torch.as_tensor(b.t, device=dev, dtype=dtype),
             y=torch.as_tensor(b.y, device=dev, dtype=dtype),
@@ -281,27 +704,48 @@ def recheck_bucket(cfg, recs, theta, dev):
         th = torch.as_tensor(np.asarray(theta, np.float32), device=dev).to(dtype)
         return online_impute(
             spec, th, data, torch.as_tensor(ut, device=dev, dtype=dtype),
-            torch.as_tensor(uv, device=dev), plain=plain,
+            torch.as_tensor(uv, device=dev),
         )
 
-    ker = run(torch.float32, False)
-    twin = run(torch.float32, True)
-    gold = run(torch.float64, True)
-    valid = ker.valid
-    check(torch.equal(valid, twin.valid), "bucket: valid masks differ")
-    d_pred = float((ker.pred - twin.pred)[valid].abs().max())
-    d_var = float(((ker.var - twin.var) / twin.var)[valid].abs().max())
-    flips = float((ker.ci != twin.ci)[valid].float().mean())
-    g_ker = float((ker.pred - gold.pred.float())[valid].abs().max())
-    g_twin = float((twin.pred - gold.pred.float())[valid].abs().max())
-    print(f"bucket n_max={b.n_max} B={len(b)} ({int(valid.sum())} predictions): "
-          f"kernels vs twins max |d pred| {d_pred:.3e} (tol {PRED_TOL:g}), "
-          f"max rel d var {d_var:.3e}, CI flips {flips:.2e} (max {CI_FLIP_MAX:g}); "
-          f"vs float64 twins: kernels {g_ker:.3e}, float32 twins {g_twin:.3e}")
-    check(d_pred <= PRED_TOL, f"bucket: predictions differ by {d_pred}")
-    check(d_var <= PRED_TOL, f"bucket: variances differ by {d_var} (relative)")
-    check(flips <= CI_FLIP_MAX, f"bucket: {flips} of the CI flags differ")
-    return d_pred
+    ker = run(torch.float32)
+    with twins():
+        twin = run(torch.float32)
+        gold = run(torch.float64)
+    d_pred, d_var, flips, n = compare_bucket("bucket", ker, twin)
+    g_ker = float((ker.pred - gold.pred.float())[ker.valid].abs().max())
+    g_twin = float((twin.pred - gold.pred.float())[ker.valid].abs().max())
+    print(f"bucket n_max={b.n_max} B={len(b)} ({n} predictions): kernels vs "
+          f"twins max |d pred| {d_pred:.3e} (tol {PRED_TOL:g}), max rel d var "
+          f"{d_var:.3e}, CI flips {flips:.2e} (max {CI_FLIP_MAX:g}); vs float64 "
+          f"twins: kernels {g_ker:.3e}, float32 twins {g_twin:.3e}")
+
+
+def recheck_update_bucket(cfg, recs, theta, dev):
+    """One bucket of mean_w_update (fold 0's kernel, the CLI run's
+    setting): kernels vs twins on the card."""
+    spec = LMCSMSpec(Q, D, R)
+    b, ut, uv = bucket_of(dev, recs, lambda bs: bs[0])
+    th = theta_from_numpy(spec, theta, dev)
+    prior = _test_prior(spec, theta, dev)
+    data = PatientData(*(torch.as_tensor(x, device=dev) for x in (b.t, b.y, b.meta, b.mask)))
+
+    def run():
+        return online_impute(
+            spec, th, data, torch.as_tensor(ut, device=dev),
+            torch.as_tensor(uv, device=dev), update=True, prior=prior,
+            learn_rate=cfg.online_learn_rate, momentum=cfg.online_momentum,
+        )
+
+    ker = run()
+    with twins():
+        twin = run()
+    d_pred, d_var, flips, n = compare_bucket("update bucket", ker, twin)
+    d_theta = float((ker.theta_final - twin.theta_final).abs().max())
+    moved = float((ker.theta_final - th).abs().max())
+    print(f"update bucket n_max={b.n_max} B={len(b)} ({n} predictions): kernels "
+          f"vs twins max |d pred| {d_pred:.3e} (tol {PRED_TOL:g}), max rel d var "
+          f"{d_var:.3e}, CI flips {flips:.2e}; theta_final differs by "
+          f"{d_theta:.3e} after moving {moved:.3e} from the mode")
 
 
 def main():
@@ -318,6 +762,15 @@ def main():
     print(smi[0])  # name, power limit
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        print(f"-- phase {name}: {phase_s[name]:.1f} s")
+        t_phase = now
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -327,6 +780,7 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             print("  ptxas:", line.strip())
+    phase_done("build")
 
     rng = np.random.default_rng(SEED)
     k1 = {}
@@ -338,53 +792,114 @@ def main():
         K, noise, y, L, linvd, errs = compare_chol(gen, dev, 64, n)
         tm = time_chol(K, noise, y, L, linvd, 5)
         print(f"K3/K5 B=64 n={n} times: chol_solve kernel {tm['chol_ms']:.3f} ms, "
-              f"twin {tm['chol_plain_ms']:.3f} ms; tri_inv kernel "
-              f"{tm['tri_ms']:.3f} ms, twin {tm['tri_plain_ms']:.3f} ms")
+              f"twin {tm['chol_plain_ms']:.3f} ms, cholesky_ex + cholesky_solve "
+              f"{tm['chol_library_ms']:.3f} ms, bound {tm['chol_bound_ms']:.3f} ms; "
+              f"tri_inv kernel {tm['tri_ms']:.3f} ms, twin {tm['tri_plain_ms']:.3f} "
+              f"ms, solve_triangular {tm['tri_library_ms']:.3f} ms, bound "
+              f"{tm['tri_bound_ms']:.3f} ms")
         del K, noise, y, L, linvd
     # the test stage's shape: thousands of (patient, timestamp) systems at n=512
     K, noise, y, L, linvd, errs = compare_chol(gen, dev, 1024, 512)
     tm = time_chol(K, noise, y, L, linvd, 3)
     print(f"K3/K5 B=1024 n=512 times: chol_solve kernel {tm['chol_ms']:.3f} ms, "
-          f"twin {tm['chol_plain_ms']:.3f} ms; tri_inv kernel {tm['tri_ms']:.3f} "
-          f"ms, twin {tm['tri_plain_ms']:.3f} ms")
+          f"twin {tm['chol_plain_ms']:.3f} ms, cholesky_ex + cholesky_solve "
+          f"{tm['chol_library_ms']:.3f} ms, bound {tm['chol_bound_ms']:.3f} ms "
+          f"({tm['chol_bound_by']}); tri_inv kernel {tm['tri_ms']:.3f} ms, twin "
+          f"{tm['tri_plain_ms']:.3f} ms, solve_triangular {tm['tri_library_ms']:.3f} "
+          f"ms, bound {tm['tri_bound_ms']:.3f} ms ({tm['tri_bound_by']})")
     del K, noise, y, L, linvd
     torch.cuda.empty_cache()
+    k4 = {Bt: compare_qmat(gen, dev, Bt, 512) for Bt in (128, 1024)}
+    torch.cuda.empty_cache()
+    k2 = {}
+    for Bt in (32, 128):
+        for masked in (False, True):
+            k2[(Bt, masked)] = compare_gram_bwd(rng, dev, Bt, 512, masked)
+    torch.cuda.empty_cache()
+    phase_done("kernels vs twins")
 
-    cfg, recs, theta, seconds, counters, outputs = run_slice(dev)
-    n_pred = sum(len(o["pred"]) for o in outputs.values())
-    err = np.concatenate([o["error"] for o in outputs.values()])
-    ci = np.concatenate([o["ci"] for o in outputs.values()])
-    print(f"test stage (mean_wo_update): {len(outputs)} patients, {n_pred} "
-          f"predictions in {seconds:.2f} s = {n_pred / seconds:.1f} predictions/s; "
-          f"MAE {np.mean(np.abs(err)):.4f}, CI coverage {100 * np.mean(ci):.2f}%")
-    print(f"launches during the test stage: {counters}")
-    for name, count in counters.items():
-        check(count > 0, f"the test stage never launched {name}")
+    rates = objective_batch(dev)
+    torch.cuda.empty_cache()
+    phase_done("objective batch")
+    memory_budgets(dev)
+    phase_done("memory budgets")
+
+    cfg_path, cfg, recs, theta = stage_cohort()
+    base = ["--cfg", cfg_path, "--device", str(dev)]
+    wo_s, wo = run_path(
+        "test (mean_wo_update)", ["test", *base, "--alg", "gmm"],
+        ("gram_lmcsm", "chol_solve", "tri_inv"),
+    )
+    n_pred = check_test_outputs(cfg, recs, "mean_wo_update")
+    print(f"test stage (mean_wo_update): {n_pred / wo_s:.1f} predictions/s")
     recheck_bucket(cfg, recs, theta, dev)
+    phase_done("test mean_wo_update")
 
+    tr_s, tr = run_path(
+        "train", ["train", *base],
+        ("gram_lmcsm", "chol_solve", "qmat", "gram_lmcsm_bwd"),
+    )
+    check_train_outputs(cfg, recs)
+    with open(os.path.join(cfg.exp_log_dir, "metrics.jsonl")) as f:
+        train_recs = [json.loads(x) for x in f if '"stage": "train"' in x]
+    evals = sum(r["evaluations"] for r in train_recs)
+    print(f"train stage: {len(train_recs)} buckets, {evals:.0f} objective+gradient "
+          f"evaluations in {tr_s:.2f} s = {evals / tr_s:.1f} evals/s, "
+          f"{len(recs) / tr_s:.2f} patients/s")
+    retrain_repeats(cfg, dev)
+    phase_done("train")
+
+    wu_s, wu = run_path(
+        "test (mean_w_update, fold 0's kernel for every patient)",
+        ["test", *base, "--alg", "gmm", "--mode", "mean_w_update", "--fold", "0"],
+        tuple(KERNELS),
+    )
+    n_pred = check_test_outputs(cfg, recs, "mean_w_update")
+    print(f"test stage (mean_w_update): {n_pred / wu_s:.1f} predictions/s")
+    recheck_update_bucket(cfg, recs, theta, dev)
+    phase_done("test mean_w_update")
+
+    by_path = {
+        name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name]}
+        for name in KERNELS
+    }
     src = "medgp_tpu_torch/csrc/"
-    g = k1[(512, False)]
+
+    def row(name, source, replaces, r, shape):
+        return dict(
+            name=name, route="cuda", source=src + source, replaces=replaces,
+            launches=sum(by_path[name].values()), max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], shape=shape,
+            launches_by_path=by_path[name],
+        )
+
+    chol_r = dict(max_abs_err=errs["L"], ms=tm["chol_ms"], plain_ms=tm["chol_plain_ms"],
+                  bound_ms=tm["chol_bound_ms"], bound_by=tm["chol_bound_by"],
+                  library_ms=tm["chol_library_ms"])
+    tri_r = dict(max_abs_err=errs["Linv"], ms=tm["tri_ms"], plain_ms=tm["tri_plain_ms"],
+                 bound_ms=tm["tri_bound_ms"], bound_by=tm["tri_bound_by"],
+                 library_ms=tm["tri_library_ms"])
     kernels = [
-        dict(name="gram_lmcsm", route="cuda", source=src + "gram.cuh",
-             replaces="medgp_tpu/ops/pallas_gram.py:154",
-             launches=counters["gram_lmcsm"], max_abs_err=g["max_abs_err"],
-             ms=g["ms"], plain_ms=g["plain_ms"], shape="B=32 n=512 Q=5 D=24"),
-        dict(name="chol_solve", route="cuda", source=src + "chol.cuh",
-             replaces="medgp_tpu/ops/pallas_chol.py:235",
-             launches=counters["chol_solve"], max_abs_err=errs["L"],
-             ms=tm["chol_ms"], plain_ms=tm["chol_plain_ms"], shape="B=1024 n=512"),
-        dict(name="tri_inv", route="cuda", source=src + "chol.cuh",
-             replaces="medgp_tpu/ops/pallas_chol.py:365",
-             launches=counters["tri_inv"], max_abs_err=errs["Linv"],
-             ms=tm["tri_ms"], plain_ms=tm["tri_plain_ms"], shape="B=1024 n=512"),
+        row("gram_lmcsm", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:154",
+            k1[(512, False)], "B=32 n=512 Q=5 D=24"),
+        row("gram_lmcsm_bwd", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:248",
+            k2[(128, True)], "B=128 n=512 Q=5 D=24 masked"),
+        row("chol_solve", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:235",
+            chol_r, "B=1024 n=512"),
+        row("qmat", "qmat.cuh", "medgp_tpu/ops/pallas_chol.py:479",
+            k4[128], "B=128 n=512"),
+        row("tri_inv", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:365",
+            tri_r, "B=1024 n=512"),
     ]
+    print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}; "
+          f"objective+gradient evals/s at B=128 n=512: {rates['kernels']:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

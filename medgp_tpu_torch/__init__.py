@@ -5,10 +5,14 @@ counterpart of the JAX module at the same path. This package imports
 ``torch`` and never ``jax`` or ``medgp_tpu`` (which would pull in jax); the
 host code the port needs is carried here in its own copy.
 
-Ported so far: the test stage in ``mean_wo_update`` mode (online
-one-step-ahead imputation with a given mode kernel), with the three TPU
-kernels on its path written by hand in CUDA (``csrc/``): the LMC-SM gram
-(K1), the fused Cholesky + solve (K3) and the triangular inverse (K5).
+Ported so far: the train stage (restart screen, hier-gamma varEM over
+SCG, or SCG alone; CLI ``train``) and the test stage in both modes (online
+one-step-ahead imputation with a given mode kernel, ``mean_wo_update``
+and ``mean_w_update``), with all five TPU kernels written by hand in CUDA
+(``csrc/``): the LMC-SM gram (K1) and its backward (K2), the fused
+Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
+triangular inverse (K5). Not yet: clustering, evaluation, the samplers,
+the row-blocked path for large patients, checkpoints, several devices.
 """
 
 import torch

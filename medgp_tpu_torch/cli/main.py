@@ -1,13 +1,15 @@
-"""Command-line interface of the port: `generate` and `test`.
+"""Command-line interface of the port: `generate`, `train` and `test`.
 
     python -m medgp_tpu_torch.cli.main generate --data-root ... --exp-root ...
-    python -m medgp_tpu_torch.cli.main test --cfg .../exp_setup.json --alg gmm
+    python -m medgp_tpu_torch.cli.main train --cfg .../exp_setup.json
+    python -m medgp_tpu_torch.cli.main test --cfg .../exp_setup.json --alg gmm \
+        --mode mean_w_update
 
-Counterpart of the same subcommands of ``medgp_tpu/cli/main.py``; both
-read and write the reference-format artifacts, so either package's
-`generate` output drives the other's `test`. `test` runs the
-`mean_wo_update` mode on `--device` (default: the first CUDA device when
-there is one); the other stages are not ported yet.
+Counterpart of the same subcommands of ``medgp_tpu/cli/main.py``; all
+read and write the reference-format artifacts, so either package's output
+drives the other's next stage. `train` and `test` run on the CUDA card;
+without one they stop with a message unless `--device cpu` asks for the
+CPU (the kernels' plain twins). The other stages are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,16 +62,46 @@ def cmd_generate(args):
     print(cfg.exp_top_dir)
 
 
-def cmd_test(args):
-    if args.mode != "mean_wo_update":
+def _device(args) -> torch.device:
+    """The device a stage runs on: the CUDA card unless `--device` names
+    another; asking for the card without one stops with a message."""
+    device = torch.device(args.device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
-            f"medgp_tpu_torch: test mode {args.mode} is not ported yet: it "
-            "updates the hyperparameters online, which needs the objective "
-            "gradient that comes with the training slice"
+            f"medgp_tpu_torch {args.command}: no CUDA device "
+            "(torch.cuda.is_available() is false); pass --device cpu to run "
+            "on the CPU"
         )
+    return device
+
+
+def cmd_train(args):
+    from medgp_tpu_torch.data.cohort import load_cohort
+    from medgp_tpu_torch.parallel.runner import train_cohort
+
+    device = _device(args)
+    cfg = _load_cfg(args.cfg)
+    records = load_cohort(
+        cfg.data_dir, [args.pan] if args.pan else cfg.pans(), cfg.feature_list
+    )
+    t0 = time.time()
+    out = train_cohort(
+        cfg, records, n_restarts=args.restarts, max_batch=args.max_batch,
+        large_threshold=args.large_threshold, ckpt_dir=args.ckpt_dir,
+        device=device,
+    )
+    ok = sum(1 for r in out.values() if r["flag"])
+    log.info(
+        "trained %d/%d patients on %s in %.1fs",
+        ok, len(out), device, time.time() - t0,
+    )
+
+
+def cmd_test(args):
     from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.parallel.runner import test_cohort
 
+    device = _device(args)
     cfg = _load_cfg(args.cfg)
     pans = cfg.pans()
     records = load_cohort(
@@ -81,9 +113,6 @@ def cmd_test(args):
         cv = cfg.cv_assign()
         index = {p: i for i, p in enumerate(pans)}
         folds = np.asarray([cv[index[r.pan]] for r in records])
-    device = torch.device(
-        args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    )
     t0 = time.time()
     test_cohort(
         cfg, records, folds=folds, kernclust_alg=args.alg,
@@ -116,6 +145,24 @@ def build_parser():
     g.add_argument("--exp-prefix", default="exp_0000")
     g.set_defaults(func=cmd_generate)
 
+    device_help = "torch device (default: cuda; cpu runs the plain twins)"
+    r = sub.add_parser("train", help="per-patient MAP training")
+    r.add_argument("--cfg", required=True)
+    r.add_argument("--pan", default=None, help="single patient id")
+    r.add_argument("--restarts", type=int, default=None)
+    r.add_argument("--max-batch", type=int, default=128)
+    r.add_argument(
+        "--large-threshold", type=int, default=None,
+        help="n_obs above which a patient needs the row-blocked path, which "
+        "is not ported (default: cfg.large_patient_threshold)",
+    )
+    r.add_argument(
+        "--ckpt-dir", default=None,
+        help="per-bucket checkpoints (not ported: refused)",
+    )
+    r.add_argument("--device", default=None, help=device_help)
+    r.set_defaults(func=cmd_train)
+
     s = sub.add_parser("test", help="online one-step-ahead imputation")
     s.add_argument("--cfg", required=True)
     s.add_argument("--pan", default=None, help="single patient id")
@@ -124,12 +171,9 @@ def build_parser():
     s.add_argument(
         "--mode", default="mean_wo_update",
         choices=("mean_wo_update", "mean_w_update"),
-        help="test mode (only mean_wo_update is ported)",
+        help="test mode (mean_w_update updates the hypers online)",
     )
-    s.add_argument(
-        "--device", default=None,
-        help="torch device (default: cuda when available, else cpu)",
-    )
+    s.add_argument("--device", default=None, help=device_help)
     s.set_defaults(func=cmd_test)
     return p
 

@@ -17,7 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from medgp_tpu_torch.data import formats
-from medgp_tpu_torch.data.inits import default_bounds
+from medgp_tpu_torch.data.inits import HypBounds, default_bounds
 from medgp_tpu_torch.models.params import KernelSpec, LMCSMSpec, SESpec, SMSpec
 
 KERNEL_CODES = {"LMC-SM": 7, "SE": 0, "SM": 8}  # run_exp_generator.py:79
@@ -85,6 +85,14 @@ class ExperimentConfig:
         if self.kernel_index == 8:
             return SMSpec(newQ)
         return self.spec()
+
+    def bounds(self) -> HypBounds:
+        """The experiment's hyp_bound.txt (float32), or the defaults."""
+        path = os.path.join(self.exp_cfg_dir, self.hyp_bound_file)
+        if os.path.exists(path):
+            lb, ub = formats.read_hyp_bounds(path, self.spec().n_hyp)
+            return HypBounds(lb=lb.astype(np.float32), ub=ub.astype(np.float32))
+        return default_bounds(self.spec())
 
     def pans(self) -> List[str]:
         path = os.path.join(self.data_dir, self.cohort_id_list)

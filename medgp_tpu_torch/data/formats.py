@@ -1,7 +1,7 @@
-"""Reference-format artifacts read and written by the test stage.
+"""Reference-format artifacts read and written by the train and test stages.
 
 Counterpart of ``medgp_tpu/data/formats.py``, trimmed to what the ported
-slice reads and writes. Every file is byte-compatible with the JAX
+slices read and write. Every file is byte-compatible with the JAX
 package's (and with the reference pipeline's):
 
   * `*.bin` - raw little-endian float64 arrays;
@@ -108,6 +108,69 @@ def write_hyp_bounds(path: str, lb: np.ndarray, ub: np.ndarray) -> None:
     with open(path, "w") as f:
         for lo, hi in zip(np.asarray(lb), np.asarray(ub)):
             f.write(f"{lo:6.6f}\n{hi:6.6f}\n")
+
+
+def read_hyp_bounds(path: str, n_hyp: int):
+    """(lb, ub) float64 arrays of the first n_hyp (lb, ub) pairs."""
+    vals = np.loadtxt(path, dtype=np.float64).ravel()
+    if len(vals) < 2 * n_hyp:
+        raise ValueError(
+            f"bounds file too short: {path} has {len(vals)} values, "
+            f"{2 * n_hyp} needed"
+        )
+    pairs = vals[: 2 * n_hyp].reshape(n_hyp, 2)
+    return pairs[:, 0].copy(), pairs[:, 1].copy()
+
+
+# ---------- train-stage artifacts ----------
+
+def train_paths(train_dir: str, pan: str) -> dict:
+    return dict(
+        init=os.path.join(train_dir, f"train_init_hyp_{pan}.bin"),
+        hyp=os.path.join(train_dir, f"train_hyp_{pan}.bin"),
+        var_hyp=os.path.join(train_dir, f"train_var_hyp_{pan}.bin"),
+        num=os.path.join(train_dir, f"train_num_{pan}.txt"),
+        flag=os.path.join(train_dir, f"train_flag_{pan}.txt"),
+    )
+
+
+def write_train_result(
+    train_dir: str,
+    pan: str,
+    theta: np.ndarray,
+    init_theta: np.ndarray,
+    var_state_flat: np.ndarray | None,
+    flag: bool,
+    n_obs: int,
+) -> None:
+    """(main_one_train.cpp:257-258, 297-323)"""
+    p = train_paths(train_dir, pan)
+    write_double_bin(p["init"], init_theta)
+    if flag:
+        write_double_bin(p["hyp"], theta)
+        if var_state_flat is not None and len(var_state_flat):
+            write_double_bin(p["var_hyp"], var_state_flat)
+    write_int_txt(p["num"], [int(n_obs)])
+    write_int_txt(p["flag"], [int(bool(flag))])
+
+
+def read_train_kernels(train_dir: str, pans: Sequence[str]):
+    """Successfully trained hyper vectors, skipping missing or failed
+    patients (medgpc/util/binaryIO.py:20-35 `read_train_kernel`).
+    Returns (pans (k,), hypers (k, H))."""
+    valid_pan, valid_hyp = [], []
+    for pan in pans:
+        p = train_paths(train_dir, str(pan))
+        try:
+            flag = int(read_int_txt(p["flag"])[0])
+            if flag:
+                valid_pan.append(str(pan))
+                valid_hyp.append(read_double_bin(p["hyp"]))
+        except (OSError, ValueError):
+            continue
+    return np.asarray(valid_pan), (
+        np.asarray(valid_hyp) if valid_hyp else np.zeros((0, 0))
+    )
 
 
 # ---------- test-stage artifacts ----------

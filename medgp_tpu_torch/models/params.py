@@ -57,6 +57,17 @@ class KernelSpec:
     def n_hyp(self) -> int:
         return self.n_lik + self.n_cov + self.n_mean
 
+    def mean_vector(self, theta: torch.Tensor, meta: torch.Tensor):
+        """Prior mean at each observation, or None for the zero mean.
+        theta (..., H) and meta (..., n) share their leading dimensions."""
+        kind = getattr(self, "mean_kind", "zero")
+        if kind == "zero":
+            return None
+        _, _, mean = self.split(theta)
+        if kind == "const":
+            return mean[..., :1].expand(meta.shape)
+        return torch.gather(mean, -1, meta.long())
+
     def split(self, theta: torch.Tensor):
         """Split flat theta into (lik, cov, mean) raw blocks."""
         lik = theta[..., : self.n_lik]
@@ -160,6 +171,20 @@ class SMSpec(KernelSpec):
             mu=torch.exp(cov[..., Q : 2 * Q]),
             v=torch.exp(cov[..., 2 * Q : 3 * Q]),
         )
+
+
+def cov_slices(spec: LMCSMSpec):
+    """Slices of the LMC-SM blocks inside the flat theta (lik offset
+    included), for prior masks and varEM clamping."""
+    Q, D, R = spec.Q, spec.D, spec.R
+    off = spec.n_lik
+    return dict(
+        lik=slice(0, off),
+        a=slice(off, off + Q * D * R),
+        mu=slice(off + Q * D * R, off + Q * D * R + Q),
+        v=slice(off + Q * D * R + Q, off + Q * (D * R + 2)),
+        kappa=slice(off + Q * (D * R + 2), off + Q * (D * R + 2 + D)),
+    )
 
 
 def theta_from_numpy(

@@ -36,6 +36,11 @@ _SIGNATURES = {
     "medgp_chol_solve": [_P] * 6 + [_I] * 2 + [_P],
     # L, linvd, X, batch, n, stream
     "medgp_tri_inv": [_P] * 3 + [_I] * 2 + [_P],
+    # L, linvd, alpha, coef, X, out, batch, n, stream
+    "medgp_qmat": [_P] * 6 + [_I] * 2 + [_P],
+    # dK, t, meta, B, mu, v, mask, dB_part, dmv_part, dB, dmu, dv,
+    # batch, n, Q, D, stream
+    "medgp_gram_bwd": [_P] * 12 + [_I] * 4 + [_P],
 }
 
 
@@ -66,24 +71,42 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libmedgp_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise on the first that
+    failed. Returns their joined output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def build_library() -> tuple[str, float, str]:
-    """Compile csrc/*.cu into the library; returns (path, seconds, nvcc's
-    output, which lists each kernel's registers and spills)."""
+    """Compile csrc/*.cu into the library, one nvcc per source started
+    together, then link; returns (path, seconds, nvcc's output, which lists
+    each kernel's registers and spills)."""
     path = library_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    stem = f"{path}.{os.getpid()}"
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{stem}.{os.path.basename(s)}.o" for s in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    tmp = f"{stem}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([[_nvcc(), *compile_flags, "-c", "-o", o, s] for s, o in zip(cu, objs)])
+        log += _run_all([[_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
-    return path, seconds, proc.stdout + proc.stderr
+    return path, seconds, log
 
 
 @functools.cache

@@ -1,9 +1,11 @@
-"""K3 (`chol_solve`) and K5 (`tri_inv`): CUDA kernels and their plain twins.
+"""K3 (`chol_solve`), K5 (`tri_inv`) and K4 (`qmat`): CUDA kernels and
+their plain twins.
 
 Replace the Pallas TPU kernels ``medgp_tpu/ops/pallas_chol.py:
-_chol_solve_kernel`` (entry `chol_solve`) and `_tri_inv_kernel` (entry
-`tri_inv`). The kernels are in ``csrc/chol.cuh``, which states what bounds
-them on the card and how they are laid out.
+_chol_solve_kernel`` (entry `chol_solve`), `_tri_inv_kernel` (entry
+`tri_inv`) and `_qmat_kernel` (entry `qmat`). The kernels are in
+``csrc/chol.cuh`` and ``csrc/qmat.cuh``, which state what bounds them on
+the card and how they are laid out.
 
 Block size: `linvd` holds the inverses of L's 32x32 diagonal blocks, shape
 (B, n/32, 32, 32); the TPU kernels' 128-wide superblocks were MXU geometry.
@@ -125,3 +127,47 @@ def tri_inv(L, linvd):
 
 
 tri_inv.launches = 0
+
+
+def qmat_plain(L, linvd, alpha, coef):
+    """Plain PyTorch K4: coef * ((L L^T)^{-1} - alpha alpha^T) by
+    `cholesky_inverse` (`linvd` unused)."""
+    c = coef.reshape(-1, 1, 1)
+    return c * (torch.cholesky_inverse(L) - alpha[:, :, None] * alpha[:, None, :])
+
+
+def qmat(L, linvd, alpha, coef):
+    """(B, n, n) lower-triangular L, its (B, n/32, 32, 32) diagonal-block
+    inverses, (B, n) alpha and (B,) or (B, 1) coef -> the full symmetric
+    (B, n, n) coef * (L^{-T} L^{-1} - alpha alpha^T): the NLML cotangent with
+    respect to the gram when coef = d_nlml / 2. alpha = 0, coef = 1 gives
+    the bare inverse (L L^T)^{-1}."""
+    Bt, n, _ = L.shape
+    _check_n(n, "qmat")
+    coef = coef.reshape(Bt)
+    if L.device.type == "cpu":
+        return qmat_plain(L, linvd, alpha, coef)
+    if L.device.type != "cuda":
+        raise ValueError(f"qmat: unsupported device {L.device}")
+    dev, f32 = L.device, torch.float32
+    cuda_build.require(L, "L", f32, (Bt, n, n), dev)
+    cuda_build.require(linvd, "linvd", f32, (Bt, n // BLOCK, BLOCK, BLOCK), dev)
+    cuda_build.require(alpha, "alpha", f32, (Bt, n), dev)
+    coef = coef.contiguous()
+    cuda_build.require(coef, "coef", f32, (Bt,), dev)
+    out = torch.empty((Bt, n, n), dtype=f32, device=dev)
+    if Bt == 0 or n == 0:
+        return out
+    X = torch.empty((Bt, n, n), dtype=f32, device=dev)  # L^{-1} workspace
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.medgp_qmat(
+            L.data_ptr(), linvd.data_ptr(), alpha.data_ptr(), coef.data_ptr(),
+            X.data_ptr(), out.data_ptr(), Bt, n, cuda_build.stream_of(L),
+        )
+    cuda_build.check_launch(code, "qmat")
+    qmat.launches += 1
+    return out
+
+
+qmat.launches = 0

@@ -1,23 +1,30 @@
-"""K1: the batched LMC-SM gram, as a CUDA kernel and its plain twin.
+"""K1 and K2: the batched LMC-SM gram and its VJP, as CUDA kernels and their
+plain twins, and the `torch.autograd.Function` that joins them.
 
-Replaces the Pallas TPU kernel ``medgp_tpu/ops/pallas_gram.py:
-_gram_fwd_kernel`` (entry `gram_lmcsm_fused`). The kernel is
-``csrc/gram.cuh``; what bounds it and how it is laid out is stated there.
+Replace the Pallas TPU kernels ``medgp_tpu/ops/pallas_gram.py:
+_gram_fwd_kernel`` (entry `gram_lmcsm_fused`) and `_gram_bwd_kernel` (its
+custom VJP). The kernels are ``csrc/gram.cuh``; what bounds them and how
+they are laid out is stated there.
 
-`gram_lmcsm_fused` takes the device of its inputs as the choice: CPU
-tensors go to the plain twin `gram_lmcsm_plain`, CUDA tensors to the kernel
-(or an error). There is no fallback from the kernel to the twin.
+Each wrapper takes the device of its inputs as the choice: CPU tensors go
+to the plain twin, CUDA tensors to the kernel (or an error). There is no
+fallback from the kernel to the twin.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from medgp_tpu_torch.models.params import REF_PI
 from medgp_tpu_torch.ops import cuda_build
 from medgp_tpu_torch.ops.gram import gram_lmcsm
 from medgp_tpu_torch.ops.nlml import mask_gram
 
 MAX_B_STACK = 8192  # Q*D*D floats the kernel holds in shared memory (gram.cuh)
+BWD_MAX_D = 32      # outputs per patient K2's segmented sum takes (gram.cuh)
+BWD_BAND = 32       # rows per band of K2's partial sums
 
 
 def gram_lmcsm_plain(t, meta, B, mu, v, mask=None) -> torch.Tensor:
@@ -66,3 +73,103 @@ def gram_lmcsm_fused(t, meta, B, mu, v, mask=None) -> torch.Tensor:
 
 
 gram_lmcsm_fused.launches = 0
+
+
+def gram_lmcsm_bwd_plain(dK, t, meta, B, mu, v, mask=None):
+    """Plain PyTorch K2: the three sums of the Pallas kernel's docstring
+    (pallas_gram.py:250-255) with w = dK, or dK * (m m^T) when masked:
+
+        dB_q[d, e] = sum_{meta_i = d, meta_j = e} w_ij k_q,ij
+        dmu_q = sum w B_q[meta_i, meta_j] (-2 pi d sin(2 pi mu_q d) E_q)
+        dv_q  = sum w B_q[meta_i, meta_j] (-4 pi^2 v_q d^2 k_q)
+
+    -> dB (Bt, Q, D, D), dmu and dv (Bt, Q)."""
+    Bt, n = t.shape
+    Q, D = B.shape[1], B.shape[2]
+    w = dK if mask is None else dK * (mask[:, :, None] * mask[:, None, :])
+    d = t[:, :, None] - t[:, None, :]
+    rsq = d * d
+    oh = torch.nn.functional.one_hot(meta.long(), D).to(dK.dtype)  # (Bt, n, D)
+    rows = meta.long()[:, :, None].expand(Bt, n, D)
+    cols = meta.long()[:, None, :].expand(Bt, n, n)
+    dB, dmu, dv = [], [], []
+    for q in range(Q):
+        muq, vq = mu[:, q, None, None], v[:, q, None, None]
+        E = torch.exp(-2.0 * (REF_PI * vq) ** 2 * rsq)
+        arg = 2.0 * REF_PI * muq * d
+        kq = torch.cos(arg) * E
+        dB.append(oh.mT @ (w * kq) @ oh)
+        wc = w * B[:, q].gather(1, rows).gather(2, cols)
+        dmu.append(torch.sum(wc * (-2.0 * REF_PI * d * torch.sin(arg) * E), dim=(1, 2)))
+        dv.append(torch.sum(wc * (-4.0 * REF_PI**2 * vq * rsq * kq), dim=(1, 2)))
+    return torch.stack(dB, 1), torch.stack(dmu, 1), torch.stack(dv, 1)
+
+
+def gram_lmcsm_bwd(dK, t, meta, B, mu, v, mask=None):
+    """The gram's VJP with respect to (B, mu, v): (Bt, n, n) dK, and the
+    forward's t, meta, B, mu, v [, mask] -> dB (Bt, Q, D, D), dmu and dv
+    (Bt, Q), all float32. dK need not be symmetric."""
+    if dK.device.type == "cpu":
+        return gram_lmcsm_bwd_plain(dK, t, meta, B, mu, v, mask)
+    if dK.device.type != "cuda":
+        raise ValueError(f"gram_lmcsm_bwd: unsupported device {dK.device}")
+    Bt, n = t.shape
+    Q, D = B.shape[1], B.shape[2]
+    dev, f32 = dK.device, torch.float32
+    dK = dK.contiguous()
+    cuda_build.require(dK, "dK", f32, (Bt, n, n), dev)
+    cuda_build.require(t, "t", f32, (Bt, n), dev)
+    cuda_build.require(meta, "meta", torch.int32, (Bt, n), dev)
+    cuda_build.require(B, "B", f32, (Bt, Q, D, D), dev)
+    cuda_build.require(mu, "mu", f32, (Bt, Q), dev)
+    cuda_build.require(v, "v", f32, (Bt, Q), dev)
+    if mask is not None:
+        cuda_build.require(mask, "mask", f32, (Bt, n), dev)
+    if D > BWD_MAX_D:
+        raise ValueError(
+            f"gram_lmcsm_bwd: D = {D} outputs exceed the kernel's "
+            f"{BWD_MAX_D} (csrc/gram.cuh kBwdMaxD)"
+        )
+    dB = torch.empty((Bt, Q, D, D), dtype=f32, device=dev)
+    dmu = torch.empty((Bt, Q), dtype=f32, device=dev)
+    dv = torch.empty((Bt, Q), dtype=f32, device=dev)
+    if Bt == 0 or n == 0:
+        return dB.zero_(), dmu.zero_(), dv.zero_()
+    nband = math.ceil(n / BWD_BAND)
+    dB_part = torch.empty((Bt, nband, Q, D, D), dtype=f32, device=dev)
+    dmv_part = torch.empty((Bt, nband, 2, Q), dtype=f32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.medgp_gram_bwd(
+            dK.data_ptr(), t.data_ptr(), meta.data_ptr(), B.data_ptr(),
+            mu.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            dB_part.data_ptr(), dmv_part.data_ptr(), dB.data_ptr(),
+            dmu.data_ptr(), dv.data_ptr(), Bt, n, Q, D,
+            cuda_build.stream_of(dK),
+        )
+    cuda_build.check_launch(code, "gram_lmcsm_bwd")
+    gram_lmcsm_bwd.launches += 1
+    return dB, dmu, dv
+
+
+gram_lmcsm_bwd.launches = 0
+
+
+class GramLMCSM(torch.autograd.Function):
+    """K = gram(t, meta, B, mu, v [, mask]) with the gradient through K2.
+
+    Forward: K1; backward: K2 -> (None, None, dB, dmu, dv, None). No
+    gradient flows to t, meta or mask: they are observation data
+    (pallas_gram.py:407-420, 441-453)."""
+
+    @staticmethod
+    def forward(ctx, t, meta, B, mu, v, mask):
+        ctx.save_for_backward(t, meta, B, mu, v, mask)
+        return gram_lmcsm_fused(t, meta, B, mu, v, mask)
+
+    @staticmethod
+    def backward(ctx, dK):
+        t, meta, B, mu, v, mask = ctx.saved_tensors
+        dB, dmu, dv = gram_lmcsm_bwd(dK, t, meta, B, mu, v, mask)
+        return None, None, dB, dmu, dv, None

@@ -40,11 +40,14 @@ def gram_se(t: torch.Tensor, lengthscale, scale) -> torch.Tensor:
 
 
 def gram_sm(t: torch.Tensor, w, mu, v) -> torch.Tensor:
-    """SM self gram: sum_q w_q * k_q; w, mu, v have shape (Q,)."""
+    """SM self gram: sum_q w_q * k_q; w, mu, v have shape (Q,), or (Bt, Q)
+    for one set per patient."""
     rsq = squared_dist(t, t)
     K = torch.zeros_like(rsq)
     for q in range(w.shape[-1]):
-        K = K + w[q] * sm_base(rsq, mu[q], v[q])
+        K = K + w[..., q, None, None] * sm_base(
+            rsq, mu[..., q, None, None], v[..., q, None, None]
+        )
     return K
 
 
@@ -61,14 +64,28 @@ def gram_lmcsm(
     t (Bt, n) float32, meta (Bt, n) int, B (Bt, Q, D, D), mu and v (Bt, Q)
     -> K (Bt, n, n). Components accumulate one at a time, so peak memory is
     O(n^2) per patient rather than O(Q n^2)."""
+    return cross_gram_lmcsm(t, meta, t, meta, B, mu, v)
+
+
+def cross_gram_lmcsm(t, meta, t2, meta2, B, mu, v) -> torch.Tensor:
+    """Batched LMC-SM cross gram K(X, X2): t, meta (Bt, n), t2, meta2
+    (Bt, m) -> (Bt, n, m) (c_kernel_LMC_SM.cpp:329-372)."""
     Bt, n = t.shape
+    m = t2.shape[1]
     D = B.shape[-1]
-    rsq = squared_dist(t, t)
+    rsq = squared_dist(t, t2)
     rows = meta.long()[:, :, None].expand(Bt, n, D)
-    cols = meta.long()[:, None, :].expand(Bt, n, n)
+    cols = meta2.long()[:, None, :].expand(Bt, n, m)
     K = torch.zeros_like(rsq)
     for q in range(B.shape[1]):
-        Bmm = B[:, q].gather(1, rows).gather(2, cols)  # B_q[meta_i, meta_j]
+        Bmm = B[:, q].gather(1, rows).gather(2, cols)  # B_q[meta_i, meta2_j]
         K = K + Bmm * sm_base(rsq, mu[:, q, None, None], v[:, q, None, None])
     return K
+
+
+def diag_lmcsm(meta: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Prior variance diag K(x, x) = sum_q B_q[meta, meta] (k_q(0) = 1),
+    meta (Bt, m), B (Bt, Q, D, D) -> (Bt, m) (c_kernel_LMC_SM.cpp:122-150)."""
+    diag_d = torch.sum(torch.diagonal(B, dim1=-2, dim2=-1), dim=1)  # (Bt, D)
+    return torch.gather(diag_d, 1, meta.long())
 

@@ -1,10 +1,12 @@
-"""Cohort-level test stage over padded buckets.
+"""Cohort-level train and test stages over padded buckets.
 
-Counterpart of the test half of ``medgp_tpu/parallel/runner.py``
-(`test_cohort`, `obs_output_order`, `stage_metrics`). Each padded bucket of
-patients runs as one batched `online_impute` on one device; the TPU-only
-parts (pow-2 batch padding to bound recompiles, the device mesh, the
-explicit compile step) have no counterpart here.
+Counterpart of ``medgp_tpu/parallel/runner.py`` (`train_cohort`,
+`test_cohort`, `obs_output_order`, `stage_metrics`, `_test_prior`). Each
+padded bucket of patients runs as one batched `train_one_patient` or
+`online_impute` on one device. The TPU-only parts (pow-2 batch padding to
+bound recompiles, the device mesh, the explicit compile step) have no
+counterpart here; the row-blocked path for large patients and the
+per-bucket checkpoints are not ported yet (ROADMAP A7, A4).
 """
 
 from __future__ import annotations
@@ -19,16 +21,23 @@ import torch
 
 from medgp_tpu_torch.config.experiment import ExperimentConfig
 from medgp_tpu_torch.data import formats
-from medgp_tpu_torch.data.cohort import PaddedBatch, PatientRecord, pack_patients
+from medgp_tpu_torch.data.cohort import (
+    PaddedBatch, PatientRecord, bucket_edges, pack_patients,
+)
+from medgp_tpu_torch.data.inits import random_inits
+from medgp_tpu_torch.infer.map_train import train_one_patient
 from medgp_tpu_torch.infer.online import OnlineResult, online_impute, unique_times
 from medgp_tpu_torch.models.gp import PatientData
-from medgp_tpu_torch.models.params import KernelSpec, theta_from_numpy
+from medgp_tpu_torch.models.params import KernelSpec, LMCSMSpec, theta_from_numpy
+from medgp_tpu_torch.models.priors import PriorSpec, clamp_a_elements, empty_prior
+from medgp_tpu_torch.utils.hbm import train_batch_cap
 from medgp_tpu_torch.utils.metrics import MetricsWriter
 
 log = logging.getLogger("medgp_tpu_torch")
 
-TEST_MODES = ("mean_wo_update",)
+TEST_MODES = ("mean_wo_update", "mean_w_update")
 MAX_BATCH = 32  # patients per bucket batch, as the JAX test stage
+TRAIN_MAX_BATCH = 128  # patients per train bucket, as the JAX train stage
 
 
 def stage_metrics(cfg: ExperimentConfig) -> MetricsWriter:
@@ -49,11 +58,138 @@ def obs_output_order(t: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return valid[np.argsort(np.asarray(t)[valid], kind="stable")]
 
 
+def batch_data(b: PaddedBatch, device: torch.device) -> PatientData:
+    return PatientData(
+        t=torch.as_tensor(b.t, device=device),
+        y=torch.as_tensor(b.y, device=device),
+        meta=torch.as_tensor(b.meta, device=device),
+        mask=torch.as_tensor(b.mask, device=device),
+    )
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def train_cohort(
+    cfg: ExperimentConfig,
+    records: Sequence[PatientRecord],
+    n_restarts: Optional[int] = None,
+    write: bool = True,
+    max_batch: int = TRAIN_MAX_BATCH,
+    ckpt_dir: Optional[str] = None,
+    large_threshold: Optional[int] = None,
+    device: torch.device | str = "cuda",
+) -> Dict[str, dict]:
+    """Train every patient; returns {pan: result dict} and optionally writes
+    the reference train artifacts (train_hyp_*, train_init_hyp_*,
+    train_var_hyp_*, train_num_*, train_flag_*).
+
+    The restart set is shared by all patients, as in the reference, where
+    every per-patient process seeds `srand(random_seed)` identically
+    (c_experiment.cpp:418-441). Each bucket of patients of similar length
+    trains as one batch (`train_one_patient`), capped by `max_batch` and by
+    the train budget of utils/hbm.py; one `train` record per bucket goes to
+    log/metrics.jsonl.
+
+    Not ported yet, and refused: patients above the large-patient
+    threshold (the row-blocked objective, ROADMAP A7) and per-bucket
+    checkpoints (`ckpt_dir`; utils/checkpoints.py, ROADMAP A4)."""
+    if ckpt_dir is not None:
+        raise NotImplementedError(
+            "train_cohort(ckpt_dir=...): per-bucket checkpoints "
+            "(medgp_tpu/utils/checkpoints.py) are not ported yet (ROADMAP A4)"
+        )
+    thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
+    large = [r.pan for r in records if r.n_obs > thr]
+    if large:
+        raise NotImplementedError(
+            f"patients {large[:5]} have more than {thr} observations: the "
+            "row-blocked large-patient path (medgp_tpu/infer/large_train.py) "
+            "is not ported yet (ROADMAP A7)"
+        )
+    device = torch.device(device)
+    spec = cfg.spec()
+    S = n_restarts or cfg.random_init_num
+    inits = random_inits(cfg.random_seed, spec, cfg.bounds(), S).to(device)
+    metrics = stage_metrics(cfg)
+    out: Dict[str, dict] = {}
+    if not records:
+        return out
+    n_top = bucket_edges([r.n_obs for r in records])[-1]
+    batches = pack_patients(
+        records, max_batch=min(max_batch, train_batch_cap(n_top, device)),
+        device=device,
+    )
+    for bidx, b in enumerate(batches):
+        t0 = time.perf_counter()
+        res = train_one_patient(
+            spec, batch_data(b, device), inits,
+            prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
+            top_iters=cfg.top_iteration_num,
+            sub_opt_iter=cfg.iteration_num_per_update,
+        )
+        theta = res.theta.double().cpu().numpy()  # waits for the device
+        dt = time.perf_counter() - t0
+        init_theta = res.init_theta.double().cpu().numpy()
+        flags = res.flag.cpu().numpy()
+        nobs = res.n_obs.cpu().numpy()
+        losses = res.loss.double().cpu().numpy()
+        evals = int(res.n_evals.sum())
+        var_flat = (
+            res.var_state.flatten().double().cpu().numpy()
+            if cfg.prior_index == 2 else None
+        )
+        log.info(
+            "trained bucket n_max=%d B=%d on %s in %.2fs (%.2f patients/s, "
+            "%d objective+gradient evaluations)",
+            b.n_max, len(b), device, dt, len(b) / dt, evals,
+        )
+        metrics.write(
+            "train", bucket=bidx, n_max=b.n_max, batch=len(b), devices=1,
+            device=str(device), seconds=dt, patients_per_sec=len(b) / dt,
+            evaluations=evals, evaluations_per_sec=evals / dt,
+            trained=int(flags.sum()),
+        )
+        for i, pan in enumerate(b.pans):
+            out[pan] = dict(
+                theta=theta[i], init_theta=init_theta[i], flag=bool(flags[i]),
+                loss=float(losses[i]), n_obs=int(nobs[i]),
+                var_state=None if var_flat is None else var_flat[i],
+            )
+            if write:
+                formats.write_train_result(
+                    cfg.exp_train_dir, pan, theta[i], init_theta[i],
+                    None if var_flat is None else var_flat[i],
+                    bool(flags[i]), int(nobs[i]),
+                )
+    return out
+
+
+# --------------------------------------------------------------------------
+# testing
+# --------------------------------------------------------------------------
+
+def _test_prior(spec: KernelSpec, mode_theta: np.ndarray, device) -> PriorSpec:
+    """Clamp the A-elements that are exactly zero in the mode kernel
+    (c_prior.cpp:118-140 `init_test_prior`; LMC-SM only)."""
+    prior = empty_prior(spec.n_hyp, device=device)
+    if isinstance(spec, LMCSMSpec):
+        nl = spec.n_lik
+        a = np.asarray(mode_theta)[nl : nl + spec.Q * spec.D * spec.R]
+        prior = clamp_a_elements(prior, spec, torch.as_tensor(a == 0.0, device=device))
+    return prior
+
+
 def impute_bucket(
     spec: KernelSpec,
     theta: torch.Tensor,
     b: PaddedBatch,
     device: torch.device,
+    update: bool = False,
+    prior: Optional[PriorSpec] = None,
+    learn_rate: float = 1e-5,
+    momentum: float = 0.9,
 ) -> OnlineResult:
     """`online_impute` of one padded bucket, with its unique timestamps
     padded to the bucket length."""
@@ -61,16 +197,10 @@ def impute_bucket(
     uv = np.zeros((len(b), b.n_max), bool)
     for i in range(len(b)):
         ut[i], uv[i] = unique_times(b.t[i], b.mask[i], pad_to=b.n_max)
-    data = PatientData(
-        t=torch.as_tensor(b.t, device=device),
-        y=torch.as_tensor(b.y, device=device),
-        meta=torch.as_tensor(b.meta, device=device),
-        mask=torch.as_tensor(b.mask, device=device),
-    )
     return online_impute(
-        spec, theta, data,
+        spec, theta, batch_data(b, device),
         torch.as_tensor(ut, device=device), torch.as_tensor(uv, device=device),
-        update=False,
+        update=update, prior=prior, learn_rate=learn_rate, momentum=momentum,
     )
 
 
@@ -80,24 +210,21 @@ def test_cohort(
     folds: Optional[np.ndarray] = None,
     kernclust_alg: str = "gmm",
     modes=TEST_MODES,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Dict[str, dict]:
     """Online imputation for every patient with its fold's mode kernel.
 
     `folds[i]` selects kernel/fold{f}/ for records[i]; None uses fold -1
-    ("all"). Only the `mean_wo_update` mode is ported; asking for another
-    raises NotImplementedError.
+    ("all"). `mean_w_update` updates each patient's hypers online under
+    the test prior (A-elements that are zero in the mode kernel stay
+    clamped) with the experiment's learning rate and momentum.
 
     etime keeps the JAX package's meaning: the bucket's wall time,
     transfers and synchronisation included, divided by its predictions.
     """
     unknown = [m for m in modes if m not in TEST_MODES]
     if unknown:
-        raise NotImplementedError(
-            f"test modes {unknown} are not ported: mean_w_update runs online "
-            "hyperparameter updates, which need the objective gradient "
-            "(the training slice)"
-        )
+        raise ValueError(f"unknown test modes {unknown}; expected {TEST_MODES}")
     device = torch.device(device)
     feature_list = cfg.feature_list
     out: Dict[str, dict] = {}
@@ -111,6 +238,7 @@ def test_cohort(
         )
         spec = cfg.test_spec(newQ)
         theta = theta_from_numpy(spec, mode_theta, device)
+        prior = _test_prior(spec, mode_theta, device)
 
         sel = [r for r, f in zip(records, folds) if f == fold]
         for rec in sel:
@@ -132,7 +260,11 @@ def test_cohort(
             res_by_mode, etime_by_mode = {}, {}
             for m in modes:
                 t0 = time.perf_counter()
-                res = impute_bucket(spec, theta, b, device)
+                res = impute_bucket(
+                    spec, theta, b, device, update=m == "mean_w_update",
+                    prior=prior, learn_rate=cfg.online_learn_rate,
+                    momentum=cfg.online_momentum,
+                )
                 res_by_mode[m] = OnlineResult(
                     *(x.cpu() for x in res)  # waits for the device
                 )

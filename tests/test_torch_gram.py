@@ -17,6 +17,9 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# the suite runs several workers on the machine's cores: one torch
+# thread each, as these small tensors gain nothing from more
+torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from medgp_tpu.models import gp as jgp  # noqa: E402

@@ -1,4 +1,4 @@
-"""The port's online imputation (`mean_wo_update`) against the JAX package.
+"""The port's online imputation (both modes) against the JAX package.
 
 Two padded patients, drawn with numpy from a seed, go through
 `medgp_tpu.infer.online.online_impute(update=False)` on both of its
@@ -18,15 +18,20 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# the suite runs several workers on the machine's cores: one torch
+# thread each, as these small tensors gain nothing from more
+torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from medgp_tpu.infer import online as jonline  # noqa: E402
 from medgp_tpu.models import gp as jgp  # noqa: E402
 from medgp_tpu.models import params as jparams  # noqa: E402
+from medgp_tpu.models import priors as jpriors  # noqa: E402
 from medgp_tpu_torch.data.synthetic import cluster_thetas, sample_cohort  # noqa: E402
 from medgp_tpu_torch.infer import online as tonline  # noqa: E402
 from medgp_tpu_torch.models import gp as tgp  # noqa: E402
 from medgp_tpu_torch.models import params as tparams  # noqa: E402
+from medgp_tpu_torch.models import priors as tpriors  # noqa: E402
 
 Q, D, R, N = 2, 3, 1, 128
 
@@ -106,11 +111,52 @@ def test_chunking_does_not_change_results(monkeypatch):
 
 
 def test_update_mode_is_refused():
+    """`online_impute(update=True)` (mean_w_update), once refused, now
+    runs: two patients with the same mode theta and test prior (one A
+    element clamped) against the JAX package's `lax.scan` pass. With a
+    learning rate large enough to move theta, predictions, variances, CI
+    flags and theta_final agree at the tolerances above; theta_final 2e-3
+    (the gradient tolerance: each update is a momentum step along a float32
+    gradient summed in another order)."""
     theta, t, y, meta, mask, ut, uv = _bucket(33)
-    spec = tparams.LMCSMSpec(Q, D, R)
+    jspec, tspec = jparams.LMCSMSpec(Q, D, R), tparams.LMCSMSpec(Q, D, R)
+    clamp = np.zeros(Q * D * R, bool)
+    clamp[0] = True
+    theta = theta.copy()
+    theta[D] = 0.0  # the clamped A element is zero in the mode kernel
+    jprior = jpriors.clamp_a_elements(
+        jpriors.empty_prior(jspec.n_hyp), jspec, jnp.asarray(clamp)
+    )
+    tprior = tpriors.clamp_a_elements(
+        tpriors.empty_prior(tspec.n_hyp), tspec, torch.as_tensor(clamp)
+    )
+    kw = dict(update=True, learn_rate=1e-3, momentum=0.9)
     data = tgp.PatientData(*map(torch.as_tensor, (t, y, meta, mask)))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tonline.online_impute(
-            spec, tparams.theta_from_numpy(spec, theta), data,
-            torch.as_tensor(ut), torch.as_tensor(uv), update=True,
+    got = tonline.online_impute(
+        tspec, tparams.theta_from_numpy(tspec, theta), data,
+        torch.as_tensor(ut), torch.as_tensor(uv), prior=tprior, **kw,
+    )
+    theta_j = jnp.asarray(theta, jnp.float32)
+    for i in range(t.shape[0]):
+        d = jgp.PatientData(
+            t=jnp.asarray(t[i]), y=jnp.asarray(y[i]),
+            meta=jnp.asarray(meta[i]), mask=jnp.asarray(mask[i]),
         )
+        want = jonline.online_impute(
+            jspec, theta_j, d, jnp.asarray(ut[i]), jnp.asarray(uv[i]),
+            prior=jprior, **kw,
+        )
+        np.testing.assert_allclose(
+            got.pred[i].numpy(), np.asarray(want.pred), rtol=2e-4, atol=2e-4
+        )
+        np.testing.assert_allclose(
+            got.var[i].numpy(), np.asarray(want.var), rtol=2e-3, atol=2e-4
+        )
+        assert np.array_equal(got.ci[i].numpy(), np.asarray(want.ci))
+        assert np.array_equal(got.valid[i].numpy(), np.asarray(want.valid))
+        tf = np.asarray(want.theta_final)
+        np.testing.assert_allclose(
+            got.theta_final[i].numpy(), tf, rtol=2e-3, atol=2e-3
+        )
+        assert np.abs(tf - theta).max() > 1e-3  # the updates moved theta
+        assert got.theta_final[i, D].item() == 0.0  # clamped A stays

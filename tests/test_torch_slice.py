@@ -1,9 +1,9 @@
 """The ported test stage as a whole, against the JAX package.
 
 A tiny cohort (6 patients, 30-100 observations, 2 features) is staged once;
-`medgp_tpu.parallel.runner.test_cohort(..., modes=("mean_wo_update",))` and
-the port's CLI `test` write their artifacts into separate experiment
-directories, and every written file is compared. Also held here: the host
+`medgp_tpu.parallel.runner.test_cohort` and the port's CLI `test` write
+their artifacts into separate experiment directories, in both test modes,
+and every written file is compared. Also held here: the host
 layer the port carries in its own copy (parameters, synthetic cohorts,
 bucketing, `generate`), which must give the JAX package's numbers and
 bytes.
@@ -22,6 +22,9 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# the suite runs several workers on the machine's cores: one torch
+# thread each, as these small tensors gain nothing from more
+torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from medgp_tpu.config import experiment as jexp  # noqa: E402
@@ -142,18 +145,7 @@ def test_generate_writes_the_same_files(staged):
     assert load(cfg_t) == load(cfg_j)
 
 
-def test_cli_test_writes_what_jax_test_cohort_writes(staged):
-    cfg_j, cfg_t = staged
-    recs = jcohort.load_cohort(cfg_j.data_dir, cfg_j.pans(), cfg_j.feature_list)
-    jrunner.test_cohort(
-        cfg_j, recs, folds=cfg_j.cv_assign(), modes=("mean_wo_update",),
-        use_mesh=False,
-    )
-    tcli.main([
-        "test", "--cfg", os.path.join(cfg_t.exp_cfg_dir, "exp_setup.json"),
-        "--device", "cpu",
-    ])
-    mode = "mean_wo_update"
+def _compare_test_outputs(cfg_j, cfg_t, mode):
     n_pred = 0
     for pan in cfg_j.pans():
         flag_j, want = jformats.read_test_result(cfg_j.exp_test_dir, mode, pan)
@@ -169,19 +161,56 @@ def test_cli_test_writes_what_jax_test_cohort_writes(staged):
         assert len(got["etime"]) == len(want["pred"])
         assert np.all(np.isfinite(got["pred"]))
         n_pred += len(got["pred"])
+    return n_pred
+
+
+def test_cli_test_writes_what_jax_test_cohort_writes(staged):
+    cfg_j, cfg_t = staged
+    recs = jcohort.load_cohort(cfg_j.data_dir, cfg_j.pans(), cfg_j.feature_list)
+    jrunner.test_cohort(
+        cfg_j, recs, folds=cfg_j.cv_assign(), modes=("mean_wo_update",),
+        use_mesh=False,
+    )
+    tcli.main([
+        "test", "--cfg", os.path.join(cfg_t.exp_cfg_dir, "exp_setup.json"),
+        "--device", "cpu",
+    ])
+    n_pred = _compare_test_outputs(cfg_j, cfg_t, "mean_wo_update")
     assert n_pred > 6 * 30
     # one metrics record per bucket; their predictions cover the cohort
     with open(os.path.join(cfg_t.exp_log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
+    recs = [r for r in recs if r["mode"] == "mean_wo_update"]
     assert {r["stage"] for r in recs} == {"test"}
     assert sum(r["predictions"] for r in recs) == n_pred
     assert all(r["sec_per_prediction"] > 0 for r in recs)
 
 
 def test_cli_refuses_the_update_mode(staged):
+    """CLI `test --mode mean_w_update --device cpu`, once refused, now
+    writes what the JAX package's `test_cohort` writes in that mode (online
+    momentum-SGD updates under the test prior), at the tolerances above."""
+    cfg_j, cfg_t = staged
+    recs = jcohort.load_cohort(cfg_j.data_dir, cfg_j.pans(), cfg_j.feature_list)
+    jrunner.test_cohort(
+        cfg_j, recs, folds=cfg_j.cv_assign(), modes=("mean_w_update",),
+        use_mesh=False,
+    )
+    tcli.main([
+        "test", "--cfg", os.path.join(cfg_t.exp_cfg_dir, "exp_setup.json"),
+        "--mode", "mean_w_update", "--device", "cpu",
+    ])
+    assert _compare_test_outputs(cfg_j, cfg_t, "mean_w_update") > 6 * 30
+
+
+@pytest.mark.parametrize("stage", ["train", "test"])
+def test_cli_without_a_card_stops_unless_asked_for_the_cpu(staged, stage):
+    """`train` and `test` run on the CUDA card by default; without one they
+    stop with a message instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
     _, cfg_t = staged
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tcli.main([
-            "test", "--cfg", os.path.join(cfg_t.exp_cfg_dir, "exp_setup.json"),
-            "--mode", "mean_w_update", "--device", "cpu",
-        ])
+    cfg = os.path.join(cfg_t.exp_cfg_dir, "exp_setup.json")
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(SystemExit, match="pass --device cpu"):
+            tcli.main([stage, "--cfg", cfg, *extra])
