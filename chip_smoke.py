@@ -9,9 +9,11 @@ Phases (any failure raises and the script exits non-zero):
      (one nvcc per source, started together);
   3. hold each kernel (K1 gram, K3 chol_solve, K5 tri_inv, K4 qmat, K2 the
      gram backward) against its plain PyTorch twin on the card at canonical
-     width (LMC-SM Q=5, D=24, R=8), including a non-SPD system and the
-     jitter-retry loop; time kernel, twin and, where one exists, the one
-     PyTorch call for the same function, with CUDA events;
+     width (LMC-SM Q=5, D=24, R=8), and K1 and K2 also at D=48, including a
+     non-SPD system and the jitter-retry loop, K3 and K5 from n=128 to
+     n=4096; time kernel, twin and, where one exists, the one PyTorch call
+     for the same function, with CUDA events; check that K3 factors a
+     matrix bitwise alike alone, inside a batch and on any cluster size;
   4. one canonical objective+gradient batch (B=128, n=512, bench.py's
      protocol) through the kernels against the plain path, and its
      evaluations per second; then the restart screen at one full chunk,
@@ -189,7 +191,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_gram(rng, dev, Bt, n, masked):
+def compare_gram(rng, dev, Bt, n, masked, D=D):
     spec = LMCSMSpec(Q, D, R)
     p = sample_cluster_params(rng, spec)
     t = np.zeros((Bt, n), np.float32)
@@ -223,7 +225,7 @@ def compare_gram(rng, dev, Bt, n, masked):
         GRAM_OPS * Bt * n * n * Q,
         4 * Bt * n * n + 4 * Bt * n * (3 if masked else 2) + 4 * Bt * Q * (D * D + 2),
     )
-    print(f"K1 gram B={Bt} n={n} masked={masked}: max_abs_err={err:.3e} "
+    print(f"K1 gram B={Bt} n={n} D={D} masked={masked}: max_abs_err={err:.3e} "
           f"(tol {K1_REL:g} x max|K| = {K1_REL * scale:.3e}) "
           f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by})")
@@ -295,6 +297,35 @@ def compare_chol(gen, dev, Bt, n):
     return K, noise, y, Lr, dr, errs
 
 
+def chol_batch_invariance(gen, dev, Bt, n):
+    """K3 factors a matrix bitwise alike alone (B=1), as a row of a batch of
+    Bt, and on every cluster size up to the limit: L, alpha and linvd of
+    members 0 and 2 (SPD) must be equal, not close. Returns the cluster
+    sizes compared."""
+    K, noise, y = spd_batch(gen, dev, Bt, n)
+    batch = cuda_chol.chol_solve(K, noise, y)
+    sizes = {"batch": cuda_chol.chol_cluster_size(Bt, n),
+             "alone": cuda_chol.chol_cluster_size(1, n)}
+    for m in (0, 2):
+        alone = [cuda_chol.chol_solve(K[m:m + 1], noise[m:m + 1], y[m:m + 1])]
+        c = 1
+        while c <= min(cuda_chol.CLUSTER_MAX, n // cuda_chol.BLOCK):
+            alone.append(cuda_chol.chol_solve_cluster(
+                K[m:m + 1], noise[m:m + 1], y[m:m + 1], c))
+            c *= 2
+        torch.cuda.synchronize()
+        for run in alone:
+            for name, got, want in zip(("L", "alpha", "linvd"), run, batch):
+                check(torch.equal(got[0], want[m]),
+                      f"K3 n={n}: member {m}'s {name} alone differs from its "
+                      f"row in a batch of {Bt}")
+    sizes["compared"] = [2**k for k in range(len(alone) - 1)]
+    print(f"K3 batch invariance n={n}: members 0 and 2 bitwise equal alone "
+          f"(cluster {sizes['alone']}), in a batch of {Bt} (cluster "
+          f"{sizes['batch']}) and on clusters {sizes['compared']}")
+    return sizes
+
+
 def chol_library(K, noise, y):
     """The PyTorch calls for K3's function: factor, then solve."""
     L, _ = torch.linalg.cholesky_ex(K + torch.diag_embed(noise))
@@ -361,8 +392,8 @@ def compare_qmat(gen, dev, Bt, n):
     return res
 
 
-def compare_gram_bwd(rng, dev, Bt, n, masked):
-    """K2 against its twin at canonical width, on a non-symmetric dK."""
+def compare_gram_bwd(rng, dev, Bt, n, masked, D=D):
+    """K2 against its twin at width D (canonical 24), on a non-symmetric dK."""
     spec = LMCSMSpec(Q, D, R)
     p = sample_cluster_params(rng, spec)
     t = np.zeros((Bt, n), np.float32)
@@ -408,7 +439,7 @@ def compare_gram_bwd(rng, dev, Bt, n, masked):
         plain_ms=cuda_ms(lambda: cuda_gram.gram_lmcsm_bwd_plain(dK, *args, mask=m), 3),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
     )
-    print(f"K2 gram_bwd B={Bt} n={n} masked={masked}: max abs err dB "
+    print(f"K2 gram_bwd B={Bt} n={n} D={D} masked={masked}: max abs err dB "
           f"{errs['dB']:.3e}, dmu {errs['dmu']:.3e}, dv {errs['dv']:.3e} (tol "
           f"{GRAD_TOL:g} x each scale), deterministic; kernel {res['ms']:.3f} ms, "
           f"twin {res['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -798,6 +829,28 @@ def main():
               f"ms, solve_triangular {tm['tri_library_ms']:.3f} ms, bound "
               f"{tm['tri_bound_ms']:.3f} ms")
         del K, noise, y, L, linvd
+    # large patients' shapes: a few matrices at n = 2048 and 4096
+    chol_more = {}
+    for Bt, n in ((8, 2048), (4, 4096)):
+        K, noise, y, L, linvd, errs = compare_chol(gen, dev, Bt, n)
+        tm = time_chol(K, noise, y, L, linvd, 2)
+        chol_more[f"B={Bt} n={n}"] = dict(
+            ms=tm["chol_ms"], plain_ms=tm["chol_plain_ms"],
+            library_ms=tm["chol_library_ms"], bound_ms=tm["chol_bound_ms"],
+            tri_ms=tm["tri_ms"], tri_plain_ms=tm["tri_plain_ms"],
+            tri_bound_ms=tm["tri_bound_ms"],
+        )
+        print(f"K3/K5 B={Bt} n={n} times: chol_solve kernel {tm['chol_ms']:.3f} ms "
+              f"(cluster {cuda_chol.chol_cluster_size(Bt, n)}), twin "
+              f"{tm['chol_plain_ms']:.3f} ms, cholesky_ex + cholesky_solve "
+              f"{tm['chol_library_ms']:.3f} ms, bound {tm['chol_bound_ms']:.3f} ms "
+              f"({tm['chol_bound_by']}); tri_inv kernel {tm['tri_ms']:.3f} ms, twin "
+              f"{tm['tri_plain_ms']:.3f} ms, bound {tm['tri_bound_ms']:.3f} ms")
+        del K, noise, y, L, linvd
+        torch.cuda.empty_cache()
+    for Bt, n in ((64, 512), (8, 2048)):
+        chol_batch_invariance(gen, dev, Bt, n)
+    torch.cuda.empty_cache()
     # the test stage's shape: thousands of (patient, timestamp) systems at n=512
     K, noise, y, L, linvd, errs = compare_chol(gen, dev, 1024, 512)
     tm = time_chol(K, noise, y, L, linvd, 3)
@@ -815,6 +868,11 @@ def main():
     for Bt in (32, 128):
         for masked in (False, True):
             k2[(Bt, masked)] = compare_gram_bwd(rng, dev, Bt, 512, masked)
+    torch.cuda.empty_cache()
+    # past the old caps (K1: Q*D*D <= 8192 floats, K2: D <= 32)
+    k1[(512, True, 48)] = compare_gram(rng, dev, 32, 512, True, D=48)
+    k2[(128, True, 48)] = compare_gram_bwd(rng, dev, 128, 512, True, D=48)
+    compare_gram(rng, dev, 8, 256, True, D=64)  # a B_q stack above 48 KB
     torch.cuda.empty_cache()
     phase_done("kernels vs twins")
 
@@ -881,12 +939,14 @@ def main():
                  bound_ms=tm["tri_bound_ms"], bound_by=tm["tri_bound_by"],
                  library_ms=tm["tri_library_ms"])
     kernels = [
-        row("gram_lmcsm", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:154",
-            k1[(512, False)], "B=32 n=512 Q=5 D=24"),
-        row("gram_lmcsm_bwd", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:248",
-            k2[(128, True)], "B=128 n=512 Q=5 D=24 masked"),
-        row("chol_solve", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:235",
-            chol_r, "B=1024 n=512"),
+        dict(row("gram_lmcsm", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:154",
+                 k1[(512, False)], "B=32 n=512 Q=5 D=24"),
+             d48_masked=k1[(512, True, 48)]),
+        dict(row("gram_lmcsm_bwd", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:248",
+                 k2[(128, True)], "B=128 n=512 Q=5 D=24 masked"),
+             d48=k2[(128, True, 48)]),
+        dict(row("chol_solve", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:235",
+                 chol_r, "B=1024 n=512"), more_shapes=chol_more),
         row("qmat", "qmat.cuh", "medgp_tpu/ops/pallas_chol.py:479",
             k4[128], "B=128 n=512"),
         row("tri_inv", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:365",

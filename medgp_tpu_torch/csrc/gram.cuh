@@ -18,7 +18,9 @@
 // What the design does about it:
 //   * the TPU's one-hot MXU gather and its f32x2 split (pallas_gram.py:12-16,
 //     117-140) are dropped: the patient's B_q stack (Q*D*D floats, 11.5 KB at
-//     Q=5, D=24) sits in shared memory and B_q[meta_i, meta_j] is a gather;
+//     Q=5, D=24, 45 KB at D=48) sits in dynamic shared memory, sized at
+//     launch (up to the card's 227 KB a block), and B_q[meta_i, meta_j] is a
+//     gather;
 //   * cos(2 pi mu (t_i - t_j)) = c_i c_j + s_i s_j (rank-2 identity, as the
 //     Pallas kernel uses): a 32x32 tile needs 64 sincos per component, not
 //     1024 cos, leaving one expf per entry and component;
@@ -32,7 +34,8 @@ constexpr float kRefPi = 3.14159265f;  // medgp_tpu/models/params.py:REF_PI
 constexpr int kGramTile = 32;
 constexpr int kGramRowsPerPass = 8;    // blockDim = (32, 8)
 constexpr int kGramThreads = kGramTile * kGramRowsPerPass;
-constexpr int kMaxBStack = 8192;       // Q*D*D floats held in shared memory
+constexpr unsigned kGramWarpMask = 0xffffffffu;
+constexpr size_t kSmemPerBlock = 232448;  // shared memory a Hopper block may opt into
 
 __global__ void gram_lmcsm_kernel(
     const float* __restrict__ t,     // (batch, n)
@@ -43,7 +46,7 @@ __global__ void gram_lmcsm_kernel(
     const float* __restrict__ mask,  // (batch, n) or nullptr
     float* __restrict__ K,           // (batch, n, n)
     int n, int Q, int D) {
-  __shared__ float Bs[kMaxBStack];
+  extern __shared__ float Bs[];  // (Q, D, D), sized at launch
   __shared__ float red[kGramThreads];
   __shared__ float ti[kGramTile], tj[kGramTile];
   __shared__ int mi[kGramTile], mj[kGramTile];
@@ -148,34 +151,55 @@ __global__ void gram_lmcsm_kernel(
 // What bounds it on this card: reading dK (4 n^2 bytes per matrix) against
 // about twenty operations per entry and component, one of them an exp; at
 // Q = 5 the two are of the same order (B = 128, n = 512: 134 MB and ~3.4
-// GFLOP), so neither the bytes nor the FP32 rate leaves much headroom.
+// GFLOP), so neither the bytes nor the FP32 rate leaves much headroom, and
+// every instruction spent on finding an entry's output is overhead.
 //
 // What the design does about it:
-//   * the TPU's one-hot MXU contractions for dB (pallas_gram.py:290-291) are
-//     replaced by a gather-free segmented sum: a 32x32 tile of w * k_q is
-//     staged in shared memory, and thread (row i, output e) adds the tile's
-//     entries whose column has meta = e, in a fixed order; at the end of the
-//     band, thread (d, e) adds the rows whose meta = d. D <= kBwdMaxD;
-//   * one CTA per (matrix, band of 32 rows) walks every column tile of its
-//     band, so dK is read once per group of up to kBwdQGroup components
-//     (one group at Q <= 8); the per-row sincos of each component is
-//     computed once per band and the per-column one once per tile (the
-//     rank-2 identities of K1: cos and sin of 2 pi mu (t_i - t_j));
-//   * a Hopper grid has no sequential axis to carry sums across tiles, so
-//     every band writes its partial dB, dmu, dv to a buffer, and a second
-//     kernel (gram_bwd_reduce_kernel) adds the bands in order: the result
-//     does not depend on scheduling, so SCG trajectories repeat run to run.
-constexpr int kBwdQGroup = 8;  // components per pass over dK
-constexpr int kBwdMaxD = 32;   // outputs per patient the segmented sum takes
-constexpr int kBwdItems = kGramTile * kBwdMaxD / kGramThreads;  // (i, e) per thread
+//   * one CTA per (matrix, band of 32 rows) walks the band's columns in
+//     chunks of kBwdChunk; for each chunk one warp builds a stable counting
+//     sort of the chunk's unmasked columns by meta (integer, in column
+//     order), so each output e owns a contiguous run of sorted positions;
+//   * the band's dK rows for the chunk are staged in shared memory with
+//     coalesced reads, scattered into sorted order; cos and sin of
+//     2 pi mu_q (t_j - t_min) are computed once per column and component
+//     into a table beside them (each column's once per CTA, not once per
+//     tile), the rows' once per CTA;
+//   * the chunk's runs are split among the 8 warps at run boundaries,
+//     balanced by entries; in a warp, lane r is row r of the band and all
+//     lanes walk the warp's sorted positions together (the column's table
+//     entries are one broadcast read), so each (row, output e) sum is a
+//     plain register sum over its run in ascending j, stored when the run
+//     ends, with B_q[meta_i, e] loaded once per run; no shuffles, no
+//     compares per entry; the TPU's one-hot MXU contractions
+//     (pallas_gram.py:290-291) are gone; a band whose rows are all padding
+//     writes zero partials and stops;
+//   * at the end of the band, thread (q, d, e) adds the rows with meta = d
+//     in row order; a Hopper grid has no sequential axis to carry sums
+//     across bands, so each band writes its partial dB, dmu, dv to a buffer
+//     and gram_bwd_reduce_kernel adds the bands in order: every sum is taken
+//     in an order fixed by the inputs, so SCG trajectories repeat run to run;
+//   * the group's B_q stack, the row sums and the chunk's tables are in
+//     dynamic shared memory sized at launch; the C entry takes as many
+//     components per pass over dK as fit in the card's 227 KB (up to
+//     kBwdQGroup), so D has no fixed cap.
+constexpr int kBwdQGroup = 8;   // most components per pass over dK
+constexpr int kBwdChunk = 192;  // columns per staged chunk (3 CTAs per SM at D = 24)
+constexpr int kBwdBand = kGramTile;
+constexpr int kBwdWarps = kGramThreads / 32;
 
-// Dynamic shared memory of gram_bwd_kernel, in floats: the group's B_q
-// stack, then the (w * k_q) tiles, reused for the per-row sums at the end.
+// Dynamic shared memory of gram_bwd_kernel in floats (ints alias floats):
+// B_q stack G*D*D, row sums G*D*33, staged dK 32*(chunk+1), cos and sin
+// 2*G*chunk, t, mask, meta and sorted position per column 4*chunk, and D
+// counting-sort offsets.
 __host__ __device__ inline int gram_bwd_smem_floats(int G, int D) {
-  return G * D * D + G * kGramTile * (kGramTile + 1);
+  return G * D * D + G * D * (kBwdBand + 1) + kBwdBand * (kBwdChunk + 1) +
+         2 * G * kBwdChunk + 4 * kBwdChunk + D;
 }
 
-__global__ void gram_bwd_kernel(
+// G components per pass, a template parameter so that each thread holds
+// exactly G sums and G of each row constant in registers.
+template <int G>
+__global__ void __launch_bounds__(kGramThreads, 3) gram_bwd_kernel(
     const float* __restrict__ dK,    // (batch, n, n)
     const float* __restrict__ t,     // (batch, n)
     const int* __restrict__ meta,    // (batch, n)
@@ -185,31 +209,46 @@ __global__ void gram_bwd_kernel(
     const float* __restrict__ mask,  // (batch, n) or nullptr
     float* __restrict__ dB_part,     // (batch, nband, Q, D, D)
     float* __restrict__ dmv_part,    // (batch, nband, 2, Q)
-    int n, int Q, int D, int q0, int G) {
+    int n, int Q, int D, int q0) {
+  static_assert(G >= 1 && G <= kBwdQGroup, "components per pass");
+  constexpr int CH = kBwdChunk;
+  constexpr int WS = kBwdChunk + 1;  // staged row stride
   extern __shared__ float smem[];
-  float* Bs = smem;                  // (G, D, D)
-  float* WK = smem + G * D * D;      // (G, 32, 33): w * k_q, then row sums
+  const int DD = D * D;
+  float* Bs = smem;                      // (G, D, D)
+  constexpr int TS = kBwdBand + 1;       // row-sum stride
+  float* T = Bs + G * DD;                // (G, D, TS): row r's sum for output e
+  float* W = T + G * D * TS;             // (32, WS): dK rows, sorted columns
+  float* cs = W + kBwdBand * WS;         // (G, CH) cos, sorted columns
+  float* sn = cs + G * CH;               // (G, CH) sin
+  float* tj = sn + G * CH;               // (CH) t_j - t_min
+  float* mkj = tj + CH;                  // (CH) mask_j
+  int* key = (int*)(mkj + CH);           // (CH) meta_j, sorted
+  int* pos = key + CH;                   // (CH) column -> sorted position, -1 if dropped
+  int* offs = pos + CH;                  // (D) counting-sort offsets
   __shared__ float red[kGramThreads];
-  __shared__ float Wt[kGramTile][kGramTile + 1];
-  __shared__ float ti[kGramTile], tj[kGramTile], mki[kGramTile], mkj[kGramTile];
-  __shared__ int mi[kGramTile], mj[kGramTile];
-  __shared__ float ci[kBwdQGroup][kGramTile], si[kBwdQGroup][kGramTile];
-  __shared__ float cj[kBwdQGroup][kGramTile], sj[kBwdQGroup][kGramTile];
+  __shared__ float ti[kBwdBand], mki[kBwdBand];
+  __shared__ int mi[kBwdBand];
+  __shared__ float rc[G][kBwdBand], rs[G][kBwdBand];
+  __shared__ float eg[G], vg[G];
+  __shared__ int nsorted;
+  __shared__ int wbeg[kBwdWarps + 1];  // each warp's sorted positions
 
   const int nband = gridDim.x;
   const int band = blockIdx.x;
   const int b = blockIdx.y;
-  const int row0 = band * kGramTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kGramTile + tx;
+  const int row0 = band * kBwdBand;
+  const int tid = threadIdx.y * kGramTile + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const float* tb = t + (size_t)b * n;
   const int* mb = meta + (size_t)b * n;
+  const float* mkb = mask != nullptr ? mask + (size_t)b * n : nullptr;
   const float* dKb = dK + (size_t)b * n * n;
-  const int DD = D * D;
 
   for (int k = tid; k < G * DD; k += kGramThreads) {
     Bs[k] = B[((size_t)b * Q + q0) * DD + k];
   }
+  for (int k = tid; k < G * D * TS; k += kGramThreads) T[k] = 0.0f;
   float tmin = 3.402823466e38f;
   for (int k = tid; k < n; k += kGramThreads) tmin = fminf(tmin, tb[k]);
   red[tid] = tmin;
@@ -219,129 +258,192 @@ __global__ void gram_bwd_kernel(
     __syncthreads();
   }
   tmin = red[0];
-  if (tid < kGramTile) {
+  if (tid < kBwdBand) {
     const int i = row0 + tid;
+    const int m = i < n ? mb[i] : -1;
+    const bool row_ok = m >= 0 && m < D;  // beyond n, or meta out of range: dropped
     ti[tid] = i < n ? tb[i] - tmin : 0.0f;
-    mi[tid] = i < n ? mb[i] : 0;
-    mki[tid] = i < n ? (mask != nullptr ? mask[(size_t)b * n + i] : 1.0f) : 0.0f;
+    mi[tid] = row_ok ? m : 0;
+    mki[tid] = row_ok ? (mkb != nullptr ? mkb[i] : 1.0f) : 0.0f;
+  } else if (tid < kBwdBand + G) {
+    const int g = tid - kBwdBand;
+    const float pv = kRefPi * v[(size_t)b * Q + q0 + g];
+    eg[g] = -2.0f * (pv * pv);
+    vg[g] = v[(size_t)b * Q + q0 + g];
   }
   __syncthreads();
-  if (tid < G * kGramTile) {
-    const int g = tid / kGramTile, r = tid % kGramTile;
+  if (!__syncthreads_or(tid < kBwdBand && mki[tid] != 0.0f)) {
+    // every row of the band is padding: zero partials
+    float* dBp = dB_part + (((size_t)b * nband + band) * Q + q0) * DD;
+    for (int idx = tid; idx < G * DD; idx += kGramThreads) dBp[idx] = 0.0f;
+    if (tid < 2 * G) {
+      dmv_part[(((size_t)b * nband + band) * 2 + tid % 2) * Q + q0 + tid / 2] = 0.0f;
+    }
+    return;
+  }
+  if (tid < G * kBwdBand) {
+    const int g = tid / kBwdBand, r = tid % kBwdBand;
     const float muq = mu[(size_t)b * Q + q0 + g];
-    sincosf((2.0f * kRefPi) * muq * ti[r], &si[g][r], &ci[g][r]);
+    sincosf((2.0f * kRefPi) * muq * ti[r], &rs[g][r], &rc[g][r]);
   }
 
-  float T[kBwdItems][kBwdQGroup];
-  float dmu_acc[kBwdQGroup], dv_acc[kBwdQGroup];
+  float dmu_acc[G], dv_acc[G];
 #pragma unroll
-  for (int g = 0; g < kBwdQGroup; ++g) {
+  for (int g = 0; g < G; ++g) {
     dmu_acc[g] = 0.0f;
     dv_acc[g] = 0.0f;
-#pragma unroll
-    for (int m = 0; m < kBwdItems; ++m) T[m][g] = 0.0f;
   }
-  const int items = kGramTile * D;
 
-  for (int jt = 0; jt < nband; ++jt) {
-    const int col0 = jt * kGramTile;
-    __syncthreads();  // the previous tile's WK, Wt and column data consumed
-    if (tid < kGramTile) {
-      const int j = col0 + tid;
-      tj[tid] = j < n ? tb[j] - tmin : 0.0f;
-      mj[tid] = j < n ? mb[j] : 0;
-      mkj[tid] = j < n ? (mask != nullptr ? mask[(size_t)b * n + j] : 1.0f) : 0.0f;
-    }
-#pragma unroll
-    for (int m = 0; m < kGramTile / kGramRowsPerPass; ++m) {
-      const int r = ty + m * kGramRowsPerPass;
-      const int i = row0 + r, j = col0 + tx;
-      Wt[r][tx] = i < n && j < n ? dKb[(size_t)i * n + j] : 0.0f;
-    }
-    __syncthreads();
-    if (tid < G * kGramTile) {
-      const int g = tid / kGramTile, c = tid % kGramTile;
-      const float muq = mu[(size_t)b * Q + q0 + g];
-      sincosf((2.0f * kRefPi) * muq * tj[c], &sj[g][c], &cj[g][c]);
+  for (int j0 = 0; j0 < n; j0 += CH) {
+    const int cn = min(CH, n - j0);
+    __syncthreads();  // the previous chunk's tables consumed
+
+    // the chunk's meta (-1 where dropped: masked or out of range), t and
+    // mask, staged with coalesced reads (t and mask in the cos/sin tables,
+    // which are filled only after the sort)
+    for (int c = tid; c < cn; c += kGramThreads) {
+      const int j = j0 + c;
+      const int m = mb[j];
+      const float mk = mkb != nullptr ? mkb[j] : 1.0f;
+      pos[c] = m >= 0 && m < D && mk != 0.0f ? m : -1;
+      cs[c] = tb[j] - tmin;
+      sn[c] = mk;
     }
     __syncthreads();
-#pragma unroll
-    for (int g = 0; g < kBwdQGroup; ++g) {
-      if (g < G) {
-        const float vq = v[(size_t)b * Q + q0 + g];
-        const float pv = kRefPi * vq;
-        const float e = -2.0f * (pv * pv);
-        const float* Bq = Bs + g * DD;
-        float* WKg = WK + g * kGramTile * (kGramTile + 1);
-#pragma unroll
-        for (int m = 0; m < kGramTile / kGramRowsPerPass; ++m) {
-          const int r = ty + m * kGramRowsPerPass;
-          const float w = Wt[r][tx] * (mki[r] * mkj[tx]);
-          const float d = ti[r] - tj[tx];
-          const float rsq = d * d;
-          const float E = expf(e * rsq);
-          const float ccss = ci[g][r] * cj[g][tx] + si[g][r] * sj[g][tx];
-          const float ssin = si[g][r] * cj[g][tx] - ci[g][r] * sj[g][tx];
-          const float kq = ccss * E;
-          WKg[r * (kGramTile + 1) + tx] = w * kq;
-          const float wc = w * Bq[mi[r] * D + mj[tx]];
-          dmu_acc[g] += wc * ((-2.0f * kRefPi) * d * ssin * E);
-          dv_acc[g] += wc * ((-4.0f * kRefPi * kRefPi) * vq * rsq * kq);
+    // stable counting sort of the chunk's kept columns by meta (warp 0)
+    if (warp == 0) {
+      for (int e = lane; e < D; e += 32) offs[e] = 0;
+      __syncwarp();
+      for (int c0 = 0; c0 < cn; c0 += 32) {
+        const int c = c0 + lane;
+        const int k = c < cn ? pos[c] : -1;
+        const unsigned same = __match_any_sync(kGramWarpMask, k);
+        if (k >= 0 && lane == __ffs(same) - 1) offs[k] += __popc(same);
+        __syncwarp();
+      }
+      if (lane == 0) {
+        int total = 0;
+        for (int e = 0; e < D; ++e) {
+          const int cnt = offs[e];
+          offs[e] = total;
+          total += cnt;
         }
+        nsorted = total;
+      }
+      __syncwarp();
+      for (int c0 = 0; c0 < cn; c0 += 32) {
+        const int c = c0 + lane;
+        const int k = c < cn ? pos[c] : -1;
+        const unsigned same = __match_any_sync(kGramWarpMask, k);
+        const int p = k >= 0 ? offs[k] + __popc(same & ((1u << lane) - 1u)) : -1;
+        if (k >= 0) {
+          key[p] = k;
+          tj[p] = cs[c];
+          mkj[p] = sn[c];
+        }
+        if (c < cn) pos[c] = p;
+        __syncwarp();
+        if (k >= 0 && lane == __ffs(same) - 1) offs[k] += __popc(same);
+        __syncwarp();
+      }
+      // offs[e] is now the end of run e; warp w starts at the first run
+      // boundary at or past w / 8 of the entries
+      if (lane <= kBwdWarps) {
+        const int target = lane * nsorted / kBwdWarps;
+        int start = 0, e = 0;
+        while (start < target) start = offs[e++];
+        wbeg[lane] = lane == kBwdWarps ? nsorted : start;
       }
     }
     __syncthreads();
-    // T[(i, e)] += sum over this tile's columns with meta_j = e, in order
+    const int M = nsorted;
+
+    // the band's dK rows for the chunk, coalesced, into sorted order; the
+    // columns' cos and sin per component
+    for (int r = threadIdx.y; r < kBwdBand; r += kGramRowsPerPass) {
+      const int i = row0 + r;
+      if (i >= n) continue;
+      const float* src = dKb + (size_t)i * n + j0;
+      for (int c = threadIdx.x; c < cn; c += kGramTile) {
+        const int p = pos[c];
+        if (p >= 0) W[r * WS + p] = src[c];
+      }
+    }
+    for (int idx = tid; idx < G * M; idx += kGramThreads) {
+      const int g = idx / M, p = idx - g * M;
+      const float muq = mu[(size_t)b * Q + q0 + g];
+      sincosf((2.0f * kRefPi) * muq * tj[p], &sn[g * CH + p], &cs[g * CH + p]);
+    }
+    __syncthreads();
+
+    // lane r of every warp is row r; the warp walks its runs in order
+    {
+      const int r = lane;
+      const float mr = mki[r], tir = ti[r];
+      const float* Wr = W + r * WS;
+      const float* Bi = Bs + mi[r] * D;
+      float crow[G], srow[G], ecoef[G], vcoef[G];  // this row's constants
 #pragma unroll
-    for (int m = 0; m < kBwdItems; ++m) {
-      const int item = tid + m * kGramThreads;
-      if (item < items) {
-        const int r = item / D, ecol = item % D;
-        for (int c = 0; c < kGramTile; ++c) {
-          if (mj[c] == ecol) {
+      for (int g = 0; g < G; ++g) {
+        crow[g] = rc[g][r];
+        srow[g] = rs[g][r];
+        ecoef[g] = eg[g];
+        vcoef[g] = (-4.0f * kRefPi * kRefPi) * vg[g];
+      }
+      const int p_end = wbeg[warp + 1];
+      int p = wbeg[warp];
+      while (p < p_end) {
+        const int e = key[p];
+        const int run_end = min(offs[e], p_end);
+        float acc[G], bc[G];
 #pragma unroll
-            for (int g = 0; g < kBwdQGroup; ++g) {
-              if (g < G) T[m][g] += WK[(g * kGramTile + r) * (kGramTile + 1) + c];
-            }
+        for (int g = 0; g < G; ++g) {
+          acc[g] = 0.0f;
+          bc[g] = Bi[g * DD + e];
+        }
+        for (; p < run_end; ++p) {
+          const float w = Wr[p] * (mr * mkj[p]);
+          const float d = tir - tj[p];
+          const float rsq = d * d;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float cj = cs[g * CH + p], sj = sn[g * CH + p];
+            const float E = expf(ecoef[g] * rsq);
+            const float ccss = crow[g] * cj + srow[g] * sj;
+            const float ssin = srow[g] * cj - crow[g] * sj;
+            const float kq = ccss * E;
+            acc[g] += w * kq;
+            const float wc = w * bc[g];
+            dmu_acc[g] += wc * ((-2.0f * kRefPi) * d * ssin * E);
+            dv_acc[g] += wc * (vcoef[g] * rsq * kq);
           }
         }
+#pragma unroll
+        for (int g = 0; g < G; ++g) T[(g * D + e) * TS + r] += acc[g];
       }
     }
   }
 
   // band partial of dB: dB_q[d, e] = sum over the band's rows with meta_i = d
   __syncthreads();
-#pragma unroll
-  for (int m = 0; m < kBwdItems; ++m) {
-    const int item = tid + m * kGramThreads;
-    if (item < items) {
-      const int r = item / D, ecol = item % D;
-#pragma unroll
-      for (int g = 0; g < kBwdQGroup; ++g) {
-        if (g < G) WK[(g * kGramTile + r) * (kGramTile + 1) + ecol] = T[m][g];
-      }
-    }
-  }
-  __syncthreads();
   float* dBp = dB_part + (((size_t)b * nband + band) * Q + q0) * DD;
   for (int idx = tid; idx < G * DD; idx += kGramThreads) {
     const int g = idx / DD, dd = (idx / D) % D, ecol = idx % D;
     float s = 0.0f;
-    for (int r = 0; r < kGramTile; ++r) {
-      if (mi[r] == dd) s += WK[(g * kGramTile + r) * (kGramTile + 1) + ecol];
+    for (int r = 0; r < kBwdBand; ++r) {
+      if (mki[r] != 0.0f && mi[r] == dd) s += T[(g * D + ecol) * TS + r];
     }
     dBp[idx] = s;
   }
 
   // band partials of dmu, dv: a fixed shuffle tree per warp, then warps in order
-  const int lane = tid & 31, warp = tid >> 5;
   __syncthreads();  // red[] reused
 #pragma unroll
-  for (int g = 0; g < kBwdQGroup; ++g) {
+  for (int g = 0; g < G; ++g) {
     float a = dmu_acc[g], c = dv_acc[g];
     for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-      c += __shfl_xor_sync(0xffffffffu, c, off);
+      a += __shfl_xor_sync(kGramWarpMask, a, off);
+      c += __shfl_xor_sync(kGramWarpMask, c, off);
     }
     if (lane == 0) {
       red[warp * 2 * kBwdQGroup + 2 * g] = a;
@@ -352,7 +454,7 @@ __global__ void gram_bwd_kernel(
   if (tid < 2 * G) {
     const int g = tid / 2, which = tid % 2;
     float s = 0.0f;
-    for (int w = 0; w < kGramThreads / 32; ++w) s += red[w * 2 * kBwdQGroup + 2 * g + which];
+    for (int w = 0; w < kBwdWarps; ++w) s += red[w * 2 * kBwdQGroup + 2 * g + which];
     dmv_part[(((size_t)b * nband + band) * 2 + which) * Q + q0 + g] = s;
   }
 }

@@ -32,8 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # t, meta, B, mu, v, mask, K, batch, n, Q, D, stream
     "medgp_gram_lmcsm": [_P] * 7 + [_I] * 4 + [_P],
-    # K, noise, y, L, alpha, linvd, batch, n, stream
-    "medgp_chol_solve": [_P] * 6 + [_I] * 2 + [_P],
+    # K, noise, y, L, alpha, linvd, batch, n, cluster, stream
+    "medgp_chol_solve": [_P] * 6 + [_I] * 3 + [_P],
     # L, linvd, X, batch, n, stream
     "medgp_tri_inv": [_P] * 3 + [_I] * 2 + [_P],
     # L, linvd, alpha, coef, X, out, batch, n, stream

@@ -11,6 +11,10 @@ Block size: `linvd` holds the inverses of L's 32x32 diagonal blocks, shape
 (B, n/32, 32, 32); the TPU kernels' 128-wide superblocks were MXU geometry.
 n must be a multiple of BLOCK.
 
+K3 runs each matrix on a thread-block cluster of C CTAs; `chol_cluster_size`
+is the launch plan (C from the batch and n alone), and the result does not
+depend on C.
+
 Each wrapper takes the device of its inputs as the choice: CPU tensors go
 to the plain twin, CUDA tensors to the kernel (or an error), with no
 fallback from one to the other.
@@ -23,6 +27,12 @@ import torch
 from medgp_tpu_torch.ops import cuda_build
 
 BLOCK = 32
+# K3's launch plan: enough CTAs that the batch fills the card's 132 SMs
+# twice over, at most 8 CTAs per matrix (the portable cluster size) below
+# n = 1024 and 16 (non-portable) from there, and no more than block rows.
+CLUSTER_TARGET_CTAS = 2 * 132
+CLUSTER_PORTABLE = 8
+CLUSTER_MAX = 16
 
 
 def block_inverses(L: torch.Tensor) -> torch.Tensor:
@@ -61,9 +71,26 @@ def tri_inv_plain(L, linvd):
     return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
+CLUSTER_DOES_NOT_FIT = -1  # csrc/chol.cu kClusterDoesNotFit
+
+
 def _check_n(n: int, what: str) -> None:
     if n % BLOCK != 0:
         raise ValueError(f"{what}: n = {n} is not a multiple of {BLOCK}")
+
+
+def chol_cluster_size(batch: int, n: int) -> int:
+    """CTAs per matrix (the cluster size) K3 is launched with for a batch of
+    `batch` (n, n) systems: the least power of two C with batch * C >=
+    CLUSTER_TARGET_CTAS, capped by CLUSTER_PORTABLE (n < 1024) or
+    CLUSTER_MAX, and by the n / BLOCK block rows. So C = 1 for the test
+    stage's batches of thousands, and grows for small batches and large n."""
+    _check_n(n, "chol_cluster_size")
+    cap = min(CLUSTER_MAX if n >= 1024 else CLUSTER_PORTABLE, max(n // BLOCK, 1))
+    c = 1
+    while 2 * c <= cap and batch * c < CLUSTER_TARGET_CTAS:
+        c *= 2
+    return c
 
 
 def chol_solve(K, noise, y):
@@ -74,8 +101,18 @@ def chol_solve(K, noise, y):
     _check_n(n, "chol_solve")
     if K.device.type == "cpu":
         return chol_solve_plain(K, noise, y)
+    return chol_solve_cluster(K, noise, y, chol_cluster_size(Bt, n))
+
+
+def chol_solve_cluster(K, noise, y, cluster: int):
+    """K3 on the card with `cluster` CTAs per matrix (`chol_solve` takes
+    `chol_cluster_size`; another size gives bitwise the same result)."""
+    Bt, n, _ = K.shape
+    _check_n(n, "chol_solve")
     if K.device.type != "cuda":
         raise ValueError(f"chol_solve: unsupported device {K.device}")
+    if not 1 <= cluster <= CLUSTER_MAX:
+        raise ValueError(f"chol_solve: cluster of {cluster} CTAs, expected 1..{CLUSTER_MAX}")
     dev, f32 = K.device, torch.float32
     cuda_build.require(K, "K", f32, (Bt, n, n), dev)
     cuda_build.require(noise, "noise", f32, (Bt, n), dev)
@@ -89,8 +126,13 @@ def chol_solve(K, noise, y):
     with torch.cuda.device(dev):
         code = lib.medgp_chol_solve(
             K.data_ptr(), noise.data_ptr(), y.data_ptr(), L.data_ptr(),
-            alpha.data_ptr(), linvd.data_ptr(), Bt, n,
+            alpha.data_ptr(), linvd.data_ptr(), Bt, n, cluster,
             cuda_build.stream_of(K),
+        )
+    if code == CLUSTER_DOES_NOT_FIT:
+        raise RuntimeError(
+            f"chol_solve: a cluster of {cluster} CTAs does not fit on "
+            f"{torch.cuda.get_device_name(dev)} (cudaOccupancyMaxActiveClusters = 0)"
         )
     cuda_build.check_launch(code, "chol_solve")
     chol_solve.launches += 1

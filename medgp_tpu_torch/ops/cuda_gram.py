@@ -22,9 +22,19 @@ from medgp_tpu_torch.ops import cuda_build
 from medgp_tpu_torch.ops.gram import gram_lmcsm
 from medgp_tpu_torch.ops.nlml import mask_gram
 
-MAX_B_STACK = 8192  # Q*D*D floats the kernel holds in shared memory (gram.cuh)
-BWD_MAX_D = 32      # outputs per patient K2's segmented sum takes (gram.cuh)
-BWD_BAND = 32       # rows per band of K2's partial sums
+# Shared memory a block may take on the H100 (227 KB), less a reserve for
+# the kernels' static arrays (under 4 KB each); the C entries check the
+# exact figure on the card.
+SMEM_BYTES = 232448 - 4096
+BWD_BAND = 32    # rows per band of K2's partial sums
+BWD_CHUNK = 192  # columns per staged chunk of K2 (gram.cuh kBwdChunk)
+
+
+def bwd_smem_bytes(G: int, D: int) -> int:
+    """K2's dynamic shared memory for G components per pass at D outputs
+    (gram.cuh gram_bwd_smem_floats)."""
+    return 4 * (G * D * D + G * D * (BWD_BAND + 1) + BWD_BAND * (BWD_CHUNK + 1)
+                + 2 * G * BWD_CHUNK + 4 * BWD_CHUNK + D)
 
 
 def gram_lmcsm_plain(t, meta, B, mu, v, mask=None) -> torch.Tensor:
@@ -52,10 +62,10 @@ def gram_lmcsm_fused(t, meta, B, mu, v, mask=None) -> torch.Tensor:
     cuda_build.require(v, "v", f32, (Bt, Q), dev)
     if mask is not None:
         cuda_build.require(mask, "mask", f32, (Bt, n), dev)
-    if Q * D * D > MAX_B_STACK:
+    if 4 * Q * D * D > SMEM_BYTES:
         raise ValueError(
-            f"gram_lmcsm_fused: Q*D*D = {Q * D * D} exceeds the kernel's "
-            f"shared-memory stack of {MAX_B_STACK} floats"
+            f"gram_lmcsm_fused: the B_q stack (Q*D*D = {Q * D * D} floats) "
+            f"exceeds a block's {SMEM_BYTES} bytes of shared memory"
         )
     K = torch.empty((Bt, n, n), dtype=f32, device=dev)
     if Bt == 0 or n == 0:
@@ -125,10 +135,10 @@ def gram_lmcsm_bwd(dK, t, meta, B, mu, v, mask=None):
     cuda_build.require(v, "v", f32, (Bt, Q), dev)
     if mask is not None:
         cuda_build.require(mask, "mask", f32, (Bt, n), dev)
-    if D > BWD_MAX_D:
+    if bwd_smem_bytes(1, D) > SMEM_BYTES:
         raise ValueError(
-            f"gram_lmcsm_bwd: D = {D} outputs exceed the kernel's "
-            f"{BWD_MAX_D} (csrc/gram.cuh kBwdMaxD)"
+            f"gram_lmcsm_bwd: D = {D} outputs need {bwd_smem_bytes(1, D)} bytes "
+            f"of shared memory per block, above {SMEM_BYTES}"
         )
     dB = torch.empty((Bt, Q, D, D), dtype=f32, device=dev)
     dmu = torch.empty((Bt, Q), dtype=f32, device=dev)

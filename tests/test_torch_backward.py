@@ -76,7 +76,7 @@ def test_qmat_twin_matches_pallas_kernel_interpret(n):
     )
 
 
-def _gram_case(seed, n=128, batch=3):
+def _gram_case(seed, n=128, batch=3, D=D):
     rng = np.random.default_rng(seed)
     t = np.sort(rng.uniform(0, 168, size=(batch, n)), axis=1).astype(np.float32)
     meta = rng.integers(0, D, size=(batch, n)).astype(np.int32)
@@ -103,9 +103,14 @@ def _assert_grads_close(got, want):
         )
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_gram_bwd_twin_matches_pallas_kernel_interpret(masked):
-    t, meta, mask, B, mu, v, dK = _gram_case(71)
+# D = 40 is past the 32 outputs the first CUDA K2 took: the function the
+# kernel must now take (chip_smoke.py holds the kernel to the twin at D=48)
+@pytest.mark.parametrize(
+    "masked,outputs", [(False, D), (True, D), (False, 40), (True, 40)],
+    ids=["False", "True", "False-D40", "True-D40"],
+)
+def test_gram_bwd_twin_matches_pallas_kernel_interpret(masked, outputs):
+    t, meta, mask, B, mu, v, dK = _gram_case(71, D=outputs)
     ts = t - t.min(axis=1, keepdims=True)  # the shift of the JAX VJP
     args = [jnp.asarray(x) for x in (dK, ts, meta, B, mu, v)]
     if masked:

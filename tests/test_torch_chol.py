@@ -201,3 +201,27 @@ def test_block_size_is_checked_on_every_device():
     K = torch.eye(48)[None]
     with pytest.raises(ValueError, match="multiple of 32"):
         cuda_chol.chol_solve(K, torch.zeros(1, 48), torch.zeros(1, 48))
+
+
+def test_chol_cluster_plan():
+    """K3's launch plan (CTAs per matrix, one cluster each) as a function
+    of (batch, n) alone: at least 1, a power of two within the cluster
+    limit (portable below n = 1024) and the block rows, 1 at the test
+    stage's batches of a thousand and more, enough CTAs to fill the card
+    twice where the limit allows; n not a multiple of 32 is refused."""
+    plan = cuda_chol.chol_cluster_size
+    for n in (32, 128, 256, 512, 1024, 2048, 4096, 8192):
+        for batch in (0, 1, 2, 6, 29, 64, 128, 263, 264, 1024, 5000):
+            c = plan(batch, n)
+            cap = cuda_chol.CLUSTER_MAX if n >= 1024 else cuda_chol.CLUSTER_PORTABLE
+            assert 1 <= c <= min(cap, n // 32) and c & (c - 1) == 0, (batch, n, c)
+            if batch >= 1024:
+                assert c == 1
+            if batch * c < cuda_chol.CLUSTER_TARGET_CTAS:
+                assert c == min(cap, n // 32) or 2 * c > n // 32, (batch, n, c)
+            else:
+                assert c == 1 or batch * (c // 2) < cuda_chol.CLUSTER_TARGET_CTAS
+    assert plan(64, 512) == 8 and plan(8, 2048) == 16 and plan(1024, 512) == 1
+    assert plan(6, 128) == 4  # a small train bucket: one CTA per block row
+    with pytest.raises(ValueError, match="multiple of 32"):
+        plan(4, 48)

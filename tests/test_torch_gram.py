@@ -34,7 +34,7 @@ from medgp_tpu_torch.ops.cuda_gram import gram_lmcsm_fused  # noqa: E402
 Q, D, R, N, BATCH = 2, 3, 1, 128, 3
 
 
-def _inputs(seed):
+def _inputs(seed, D=D):
     rng = np.random.default_rng(seed)
     t = np.sort(rng.uniform(0, 168, size=(BATCH, N)), axis=1).astype(np.float32)
     meta = rng.integers(0, D, size=(BATCH, N)).astype(np.int32)
@@ -51,7 +51,7 @@ def _inputs(seed):
 
 
 def _port_gram(t, meta, mask, A, mu, v, kappa, masked):
-    spec = tparams.LMCSMSpec(Q, D, R)
+    spec = tparams.LMCSMSpec(Q, A.shape[1], R)
     B = spec.coregional_B(torch.as_tensor(A), torch.as_tensor(kappa))
     return gram_lmcsm_fused(
         torch.as_tensor(t), torch.as_tensor(meta),
@@ -78,15 +78,20 @@ def test_gram_twin_matches_xla_gram(masked):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_gram_twin_matches_pallas_kernel_interpret(masked):
-    t, meta, mask, A, mu, v, kappa = _inputs(12)
-    spec = jparams.LMCSMSpec(Q, D, R)
+# D = 40: past the B_q stack the first CUDA K1 held in static shared
+# memory at Q = 5 (chip_smoke.py holds the kernel to the twin at D=48)
+@pytest.mark.parametrize(
+    "masked,outputs", [(False, D), (True, D), (False, 40), (True, 40)],
+    ids=["False", "True", "False-D40", "True-D40"],
+)
+def test_gram_twin_matches_pallas_kernel_interpret(masked, outputs):
+    t, meta, mask, A, mu, v, kappa = _inputs(12, D=outputs)
+    spec = jparams.LMCSMSpec(Q, outputs, R)
     B = np.asarray(spec.coregional_B(jnp.asarray(A), jnp.asarray(kappa)))
     want = np.asarray(
         pallas_gram._gram_fwd_batched(
             jnp.asarray(t), jnp.asarray(meta),
-            jnp.asarray(np.broadcast_to(B, (BATCH, Q, D, D))),
+            jnp.asarray(np.broadcast_to(B, (BATCH, Q, outputs, outputs))),
             jnp.asarray(np.broadcast_to(mu, (BATCH, Q))),
             jnp.asarray(np.broadcast_to(v, (BATCH, Q))),
             jnp.asarray(mask) if masked else None,
