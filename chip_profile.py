@@ -7,8 +7,9 @@ CUDA card.
 Stages chip_smoke.py's 64-patient cohort (LMC-SM Q=5, D=24, R=8) and its
 cut train budget (chip_smoke.TRAIN_OPT), runs each stage once to warm up,
 then once more under `torch.profiler`, and prints for each: the wall time,
-the device's busy time and idle share, device time by kernel, and the host
-calls that wait for the device or launch work. Working files go to
+the device's busy time and idle share, device time by kernel (the 12
+largest and every kernel of the port), and the host calls that wait for
+the device or launch work. Working files go to
 .chip_smoke/ beside it.
 """
 
@@ -53,7 +54,10 @@ def profiled(name, fn):
     busy = sum(us for us, _ in by_name.values()) / 1e6
     print(f"{name}: wall {wall:.3f} s, device busy {busy:.3f} s, "
           f"idle {100 * (1 - busy / wall):.1f}% of the wall")
-    for key, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+    # the 12 largest, then the port's own kernels that are not among them
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    shown = ranked[:12] + [kv for kv in ranked[12:] if kv[0].startswith("medgp::")]
+    for key, (us, count) in shown:
         print(f"  {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% x{count:<6d} {key[:90]}")
     print(f"  host calls: {host}")
 

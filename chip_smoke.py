@@ -11,9 +11,11 @@ Phases (any failure raises and the script exits non-zero):
      gram backward) against its plain PyTorch twin on the card at canonical
      width (LMC-SM Q=5, D=24, R=8), and K1 and K2 also at D=48, including a
      non-SPD system and the jitter-retry loop, K3 and K5 from n=128 to
-     n=4096; time kernel, twin and, where one exists, the one PyTorch call
-     for the same function, with CUDA events; check that K3 factors a
-     matrix bitwise alike alone, inside a batch and on any cluster size;
+     n=4096, K4 at n=128 to 2048; time kernel, twin and, where one exists,
+     the one PyTorch call for the same function, with CUDA events (K4 also
+     split into K5 alone and the syrk); check that K3 factors a matrix
+     bitwise alike alone, inside a batch and on any cluster size, and that
+     K5 and K4 give a member bitwise alike alone and inside a batch;
   4. one canonical objective+gradient batch (B=128, n=512, bench.py's
      protocol) through the kernels against the plain path, and its
      evaluations per second; then the restart screen at one full chunk,
@@ -384,12 +386,49 @@ def compare_qmat(gen, dev, Bt, n):
         plain_ms=cuda_ms(lambda: cuda_chol.qmat_plain(L, linvd, alpha, coef), reps),
         library_ms=cuda_ms(library, reps),
         bound_ms=bound_ms, bound_by=bound_by,
+        # K4's first launches are K5's: K5 alone on the same L, and the rest
+        tri_inv_ms=cuda_ms(lambda: cuda_chol.tri_inv(L, linvd), reps),
     )
+    res["syrk_ms"] = res["ms"] - res["tri_inv_ms"]
     print(f"K4 qmat B={Bt} n={n}: max_abs_err={err:.3e} (tol {K4_REL:g} x "
-          f"max|out| = {K4_REL * scale:.3e}); kernel {res['ms']:.3f} ms, twin "
-          f"{res['plain_ms']:.3f} ms, cholesky_inverse + rank-1 "
+          f"max|out| = {K4_REL * scale:.3e}); kernel {res['ms']:.3f} ms (K5 alone "
+          f"{res['tri_inv_ms']:.3f} ms, the syrk the rest, {res['syrk_ms']:.3f} ms), "
+          f"twin {res['plain_ms']:.3f} ms, cholesky_inverse + rank-1 "
           f"{res['library_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     return res
+
+
+def tri_qmat_batch_invariance(gen, dev):
+    """K5 and K4 compute each member alone as in a batch: X of members 0
+    and 2 (SPD) at B=64 and B=1024, n=512, and at B=8, n=2048, and K4's
+    output at B=128, n=512, must be equal, not close."""
+    for Bt, n in ((64, 512), (1024, 512), (8, 2048)):
+        K, noise, y = spd_batch(gen, dev, Bt, n)
+        L, _, linvd = cuda_chol.chol_solve(K, noise, y)
+        del K
+        X = cuda_chol.tri_inv(L, linvd)
+        for m in (0, 2):
+            alone = cuda_chol.tri_inv(L[m:m + 1].contiguous(), linvd[m:m + 1].contiguous())
+            check(torch.equal(alone[0], X[m]),
+                  f"K5 B={Bt} n={n}: member {m}'s L^-1 alone differs from its row "
+                  f"in the batch")
+        del L, linvd, X
+        torch.cuda.empty_cache()
+        print(f"K5 batch invariance B={Bt} n={n}: members 0 and 2 bitwise equal "
+              f"alone and in the batch")
+    Bt, n = 128, 512
+    K, noise, y = spd_batch(gen, dev, Bt, n)
+    L, alpha, linvd = cuda_chol.chol_solve(K, noise, y)
+    coef = 0.5 * torch.rand(Bt, generator=gen, device=dev) + 0.25
+    out = cuda_chol.qmat(L, linvd, alpha, coef)
+    for m in (0, 2):
+        alone = cuda_chol.qmat(L[m:m + 1].contiguous(), linvd[m:m + 1].contiguous(),
+                               alpha[m:m + 1].contiguous(), coef[m:m + 1].contiguous())
+        check(torch.equal(alone[0], out[m]),
+              f"K4 B={Bt} n={n}: member {m}'s output alone differs from its row "
+              f"in the batch")
+    print(f"K4 batch invariance B={Bt} n={n}: members 0 and 2 bitwise equal alone "
+          f"and in the batch")
 
 
 def compare_gram_bwd(rng, dev, Bt, n, masked, D=D):
@@ -819,9 +858,18 @@ def main():
         for masked in (False, True):
             k1[(n, masked)] = compare_gram(rng, dev, 32, n, masked)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    tri_shapes = {}  # K5 at every shape timed
+
+    def tri_row(Bt, n, tm, errs):
+        tri_shapes[f"B={Bt} n={n}"] = dict(
+            max_abs_err=errs["Linv"], ms=tm["tri_ms"], plain_ms=tm["tri_plain_ms"],
+            library_ms=tm["tri_library_ms"], bound_ms=tm["tri_bound_ms"],
+            bound_by=tm["tri_bound_by"])
+
     for n in (128, 256, 512, 1024):
         K, noise, y, L, linvd, errs = compare_chol(gen, dev, 64, n)
         tm = time_chol(K, noise, y, L, linvd, 5)
+        tri_row(64, n, tm, errs)
         print(f"K3/K5 B=64 n={n} times: chol_solve kernel {tm['chol_ms']:.3f} ms, "
               f"twin {tm['chol_plain_ms']:.3f} ms, cholesky_ex + cholesky_solve "
               f"{tm['chol_library_ms']:.3f} ms, bound {tm['chol_bound_ms']:.3f} ms; "
@@ -838,14 +886,16 @@ def main():
             ms=tm["chol_ms"], plain_ms=tm["chol_plain_ms"],
             library_ms=tm["chol_library_ms"], bound_ms=tm["chol_bound_ms"],
             tri_ms=tm["tri_ms"], tri_plain_ms=tm["tri_plain_ms"],
-            tri_bound_ms=tm["tri_bound_ms"],
+            tri_library_ms=tm["tri_library_ms"], tri_bound_ms=tm["tri_bound_ms"],
         )
+        tri_row(Bt, n, tm, errs)
         print(f"K3/K5 B={Bt} n={n} times: chol_solve kernel {tm['chol_ms']:.3f} ms "
               f"(cluster {cuda_chol.chol_cluster_size(Bt, n)}), twin "
               f"{tm['chol_plain_ms']:.3f} ms, cholesky_ex + cholesky_solve "
               f"{tm['chol_library_ms']:.3f} ms, bound {tm['chol_bound_ms']:.3f} ms "
               f"({tm['chol_bound_by']}); tri_inv kernel {tm['tri_ms']:.3f} ms, twin "
-              f"{tm['tri_plain_ms']:.3f} ms, bound {tm['tri_bound_ms']:.3f} ms")
+              f"{tm['tri_plain_ms']:.3f} ms, solve_triangular "
+              f"{tm['tri_library_ms']:.3f} ms, bound {tm['tri_bound_ms']:.3f} ms")
         del K, noise, y, L, linvd
         torch.cuda.empty_cache()
     for Bt, n in ((64, 512), (8, 2048)):
@@ -854,6 +904,7 @@ def main():
     # the test stage's shape: thousands of (patient, timestamp) systems at n=512
     K, noise, y, L, linvd, errs = compare_chol(gen, dev, 1024, 512)
     tm = time_chol(K, noise, y, L, linvd, 3)
+    tri_row(1024, 512, tm, errs)
     print(f"K3/K5 B=1024 n=512 times: chol_solve kernel {tm['chol_ms']:.3f} ms, "
           f"twin {tm['chol_plain_ms']:.3f} ms, cholesky_ex + cholesky_solve "
           f"{tm['chol_library_ms']:.3f} ms, bound {tm['chol_bound_ms']:.3f} ms "
@@ -862,7 +913,10 @@ def main():
           f"ms, bound {tm['tri_bound_ms']:.3f} ms ({tm['tri_bound_by']})")
     del K, noise, y, L, linvd
     torch.cuda.empty_cache()
-    k4 = {Bt: compare_qmat(gen, dev, Bt, 512) for Bt in (128, 1024)}
+    k4 = {(Bt, n): compare_qmat(gen, dev, Bt, n)
+          for Bt, n in ((128, 512), (1024, 512), (128, 128), (128, 256), (8, 2048))}
+    torch.cuda.empty_cache()
+    tri_qmat_batch_invariance(gen, dev)
     torch.cuda.empty_cache()
     k2 = {}
     for Bt in (32, 128):
@@ -935,9 +989,6 @@ def main():
     chol_r = dict(max_abs_err=errs["L"], ms=tm["chol_ms"], plain_ms=tm["chol_plain_ms"],
                   bound_ms=tm["chol_bound_ms"], bound_by=tm["chol_bound_by"],
                   library_ms=tm["chol_library_ms"])
-    tri_r = dict(max_abs_err=errs["Linv"], ms=tm["tri_ms"], plain_ms=tm["tri_plain_ms"],
-                 bound_ms=tm["tri_bound_ms"], bound_by=tm["tri_bound_by"],
-                 library_ms=tm["tri_library_ms"])
     kernels = [
         dict(row("gram_lmcsm", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:154",
                  k1[(512, False)], "B=32 n=512 Q=5 D=24"),
@@ -947,10 +998,12 @@ def main():
              d48=k2[(128, True, 48)]),
         dict(row("chol_solve", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:235",
                  chol_r, "B=1024 n=512"), more_shapes=chol_more),
-        row("qmat", "qmat.cuh", "medgp_tpu/ops/pallas_chol.py:479",
-            k4[128], "B=128 n=512"),
-        row("tri_inv", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:365",
-            tri_r, "B=1024 n=512"),
+        dict(row("qmat", "qmat.cuh", "medgp_tpu/ops/pallas_chol.py:479",
+                 k4[(128, 512)], "B=128 n=512"),
+             tri_inv_ms=k4[(128, 512)]["tri_inv_ms"], syrk_ms=k4[(128, 512)]["syrk_ms"],
+             more_shapes={f"B={b} n={n}": r for (b, n), r in k4.items()}),
+        dict(row("tri_inv", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:365",
+                 tri_shapes["B=1024 n=512"], "B=1024 n=512"), more_shapes=tri_shapes),
     ]
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}; "
           f"objective+gradient evals/s at B=128 n=512: {rates['kernels']:.1f}")

@@ -13,7 +13,10 @@ n must be a multiple of BLOCK.
 
 K3 runs each matrix on a thread-block cluster of C CTAs; `chol_cluster_size`
 is the launch plan (C from the batch and n alone), and the result does not
-depend on C.
+depend on C. K5 inverts L by recursive doubling in 1 + ceil(log2(n / 128))
+launches (the 128-wide diagonal blocks, then one launch per level); K4 is
+those launches into a workspace, then one syrk launch. Their launch plans
+live in csrc/chol.cu, and neither result depends on the batch.
 
 Each wrapper takes the device of its inputs as the choice: CPU tensors go
 to the plain twin, CUDA tensors to the kernel (or an error), with no
