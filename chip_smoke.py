@@ -10,12 +10,16 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel (K1 gram, K3 chol_solve, K5 tri_inv, K4 qmat, K2 the
      gram backward) against its plain PyTorch twin on the card at canonical
      width (LMC-SM Q=5, D=24, R=8), and K1 and K2 also at D=48, including a
-     non-SPD system and the jitter-retry loop, K3 and K5 from n=128 to
-     n=4096, K4 at n=128 to 2048; time kernel, twin and, where one exists,
-     the one PyTorch call for the same function, with CUDA events (K4 also
-     split into K5 alone and the syrk); check that K3 factors a matrix
-     bitwise alike alone, inside a batch and on any cluster size, and that
-     K5 and K4 give a member bitwise alike alone and inside a batch;
+     non-SPD system and the jitter-retry loop, K1 at B=32 n=128..512 and
+     the main path's other shapes (B=1, 29 and 464 at n=512, B=6 at n=128,
+     B=2 at n=2048, ragged n=200, D=64), K3 and K5 from n=128 to n=4096, K4
+     at n=128 to 2048; time kernel, twin and, where one exists, the one
+     PyTorch call for the same function, with CUDA events (K1's kernel also
+     by a CUDA graph's replay, K4 also split into K5 alone and the syrk); check
+     that K3 factors a matrix bitwise alike alone, inside a batch and on
+     any cluster size, that K5 and K4 give a member bitwise alike alone
+     and inside a batch, and (gram_symmetry_and_batch_invariance) that K1's
+     output equals its transpose and a member's alone, bitwise;
   4. one canonical objective+gradient batch (B=128, n=512, bench.py's
      protocol) through the kernels against the plain path, and its
      evaluations per second; then the restart screen at one full chunk,
@@ -111,8 +115,15 @@ PEAK_BYTES = 3.35e12
 # kernels' formulas spell them out (csrc/gram.cuh): the forward's distance,
 # its square, the exponent, exp, the rank-2 cosine (3), the coefficient
 # product and the sum; the backward's about twice that (both partials).
+# K is symmetric, so the forward's count takes each distinct entry once
+# (n (n + 1) / 2 per matrix); the backward reads every entry of dK.
 GRAM_OPS = 9
 GRAM_BWD_OPS = 20
+# The special-function units beside the fp32 rate (Hopper architecture
+# white paper: 16 results per SM and clock; 132 SMs at the H100 SXM's
+# 1.98 GHz boost clock): K1's exponentials, one per distinct entry and
+# component, are printed as a second term beside its bound (text only).
+PEAK_SFU = 132 * 16 * 1.98e9
 
 # Launch counters of the five kernels' wrappers.
 KERNELS = {
@@ -193,7 +204,39 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_gram(rng, dev, Bt, n, masked, D=D):
+def graph_ms(fn, reps):
+    """Mean milliseconds per call of the device's work alone: `reps` calls
+    captured in one CUDA graph (after two warm-up calls on the capture
+    stream), replayed once to warm up, then three times between CUDA
+    events. The Python wrapper's own time per call, which cuda_ms adds
+    where the kernel is shorter, is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def gram_inputs(rng, dev, Bt, n, D=D):
+    """K1's inputs for Bt patients of n padded observations (between n/2 + 1
+    and n real ones, over 7 days) from one cluster's hypers: [t, meta, B,
+    mu, v] and the mask, on `dev`."""
     spec = LMCSMSpec(Q, D, R)
     p = sample_cluster_params(rng, spec)
     t = np.zeros((Bt, n), np.float32)
@@ -212,7 +255,12 @@ def compare_gram(rng, dev, Bt, n, masked, D=D):
         torch.as_tensor(np.tile(p["mu"], (Bt, 1)).astype(np.float32), device=dev),
         torch.as_tensor(np.tile(p["v"], (Bt, 1)).astype(np.float32), device=dev),
     ]
-    m = torch.as_tensor(mask, device=dev) if masked else None
+    return args, torch.as_tensor(mask, device=dev)
+
+
+def compare_gram(rng, dev, Bt, n, masked, D=D):
+    args, mask = gram_inputs(rng, dev, Bt, n, D)
+    m = mask if masked else None
     K = cuda_gram.gram_lmcsm_fused(*args, mask=m)
     Kp = cuda_gram.gram_lmcsm_plain(*args, mask=m)
     torch.cuda.synchronize()
@@ -221,18 +269,59 @@ def compare_gram(rng, dev, Bt, n, masked, D=D):
     check(bool(torch.isfinite(K).all()), f"K1 n={n}: non-finite output")
     check(err <= K1_REL * scale,
           f"K1 n={n} masked={masked}: max abs err {err} > {K1_REL} * {scale}")
-    ms = cuda_ms(lambda: cuda_gram.gram_lmcsm_fused(*args, mask=m), 20)
+    reps = 20 if Bt * n * n <= 2**24 else 5
+    ms = cuda_ms(lambda: cuda_gram.gram_lmcsm_fused(*args, mask=m), reps)
+    kernel_ms = graph_ms(lambda: cuda_gram.gram_lmcsm_fused(*args, mask=m), reps)
     plain_ms = cuda_ms(lambda: cuda_gram.gram_lmcsm_plain(*args, mask=m), 5)
+    entries = Bt * n * (n + 1) // 2  # distinct entries of the symmetric K
     bound_ms, bound_by = bound(
-        GRAM_OPS * Bt * n * n * Q,
+        GRAM_OPS * entries * Q,
         4 * Bt * n * n + 4 * Bt * n * (3 if masked else 2) + 4 * Bt * Q * (D * D + 2),
     )
+    sfu_ms = 1e3 * entries * Q / PEAK_SFU
+    plan = cuda_gram.gram_plan(Bt, n)
     print(f"K1 gram B={Bt} n={n} D={D} masked={masked}: max_abs_err={err:.3e} "
           f"(tol {K1_REL:g} x max|K| = {K1_REL * scale:.3e}) "
-          f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+          f"kernel {ms:.4f} ms a call through the wrapper ({kernel_ms:.4f} ms by graph "
+          f"replay), twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; exponentials on the SFUs {sfu_ms:.4f} ms); plan (tile, "
+          f"items_per_cta, ctas) {plan}")
+    torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, graph_ms=kernel_ms)
+
+
+def gram_symmetry_and_batch_invariance(dev):
+    """K1's output equals its transpose bitwise, masked and not, even where
+    B_q is not bitwise symmetric (here its upper entries are moved one ulp),
+    and members 0 and 2 computed alone equal their rows in batches of 32
+    and 464 (n = 512), bitwise."""
+    rng = np.random.default_rng(SEED + 1)
+    for Bt in (32, 464):
+        args, mask = gram_inputs(rng, dev, Bt, 512)
+        Bu = torch.triu(torch.ones(D, D, dtype=torch.bool, device=dev), 1)
+        args[2] = torch.where(Bu, torch.nextafter(args[2], torch.full_like(args[2], 1e30)),
+                              args[2]).contiguous()
+        check(not torch.equal(args[2], args[2].mT), "B_q stayed bitwise symmetric")
+        for m in (None, mask):
+            K = cuda_gram.gram_lmcsm_fused(*args, mask=m)
+            check(torch.equal(K, K.mT),
+                  f"K1 B={Bt} masked={m is not None}: K differs from its transpose")
+            for i in (0, 2):
+                alone = cuda_gram.gram_lmcsm_fused(
+                    *(a[i:i + 1].contiguous() for a in args),
+                    mask=None if m is None else m[i:i + 1].contiguous())
+                check(torch.equal(alone[0], K[i]),
+                      f"K1 B={Bt} masked={m is not None}: member {i} alone differs "
+                      f"from its row in the batch")
+            del K
+        torch.cuda.synchronize()
+        print(f"K1 symmetry and batch invariance B={Bt} n=512: K equals K^T bitwise "
+              f"(masked and not, B_q not symmetric); members 0 and 2 bitwise equal "
+              f"alone (plan {cuda_gram.gram_plan(1, 512)}) and in the batch (plan "
+              f"{cuda_gram.gram_plan(Bt, 512)})")
+        del args, mask
+        torch.cuda.empty_cache()
 
 
 def spd_batch(gen, dev, Bt, n):
@@ -433,27 +522,10 @@ def tri_qmat_batch_invariance(gen, dev):
 
 def compare_gram_bwd(rng, dev, Bt, n, masked, D=D):
     """K2 against its twin at width D (canonical 24), on a non-symmetric dK."""
-    spec = LMCSMSpec(Q, D, R)
-    p = sample_cluster_params(rng, spec)
-    t = np.zeros((Bt, n), np.float32)
-    meta = np.zeros((Bt, n), np.int32)
-    mask = np.zeros((Bt, n), np.float32)
-    for i in range(Bt):
-        k = int(rng.integers(n // 2 + 1, n + 1))
-        t[i, :k] = np.sort(rng.uniform(0, 168, size=k))
-        meta[i, :k] = rng.integers(0, D, size=k)
-        mask[i, :k] = 1.0
-    B = np.stack([p["A"][q] @ p["A"][q].T + np.diag(p["kappa"][q])
-                  for q in range(Q)]).astype(np.float32)
-    args = [
-        torch.as_tensor(t, device=dev), torch.as_tensor(meta, device=dev),
-        torch.as_tensor(np.broadcast_to(B, (Bt, Q, D, D)).copy(), device=dev),
-        torch.as_tensor(np.tile(p["mu"], (Bt, 1)).astype(np.float32), device=dev),
-        torch.as_tensor(np.tile(p["v"], (Bt, 1)).astype(np.float32), device=dev),
-    ]
+    args, mask = gram_inputs(rng, dev, Bt, n, D)
     dK = torch.randn((Bt, n, n), generator=torch.Generator(device=dev).manual_seed(n),
                      device=dev)
-    m = torch.as_tensor(mask, device=dev) if masked else None
+    m = mask if masked else None
     got = cuda_gram.gram_lmcsm_bwd(dK, *args, mask=m)
     want = cuda_gram.gram_lmcsm_bwd_plain(dK, *args, mask=m)
     again = cuda_gram.gram_lmcsm_bwd(dK, *args, mask=m)
@@ -856,7 +928,8 @@ def main():
     k1 = {}
     for n in (128, 256, 512):
         for masked in (False, True):
-            k1[(n, masked)] = compare_gram(rng, dev, 32, n, masked)
+            k1[f"B=32 n={n}{' masked' if masked else ''}"] = compare_gram(
+                rng, dev, 32, n, masked)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tri_shapes = {}  # K5 at every shape timed
 
@@ -924,11 +997,18 @@ def main():
             k2[(Bt, masked)] = compare_gram_bwd(rng, dev, Bt, 512, masked)
     torch.cuda.empty_cache()
     # past the old caps (K1: Q*D*D <= 8192 floats, K2: D <= 32)
-    k1[(512, True, 48)] = compare_gram(rng, dev, 32, 512, True, D=48)
+    k1["B=32 n=512 D=48 masked"] = compare_gram(rng, dev, 32, 512, True, D=48)
     k2[(128, True, 48)] = compare_gram_bwd(rng, dev, 128, 512, True, D=48)
-    compare_gram(rng, dev, 8, 256, True, D=64)  # a B_q stack above 48 KB
+    k1["B=8 n=256 D=64 masked"] = compare_gram(rng, dev, 8, 256, True, D=64)
     torch.cuda.empty_cache()
+    # K1 at the main path's other shapes: one patient, the n=128 and n=512
+    # buckets of mean_w_update, the screen's chunk, a large patient, ragged n
+    for Bt, n in ((1, 512), (6, 128), (29, 512), (464, 512), (2, 2048), (32, 200)):
+        k1[f"B={Bt} n={n} masked"] = compare_gram(rng, dev, Bt, n, True)
+        torch.cuda.empty_cache()
     phase_done("kernels vs twins")
+    gram_symmetry_and_batch_invariance(dev)
+    phase_done("gram_symmetry_and_batch_invariance")
 
     rates = objective_batch(dev)
     torch.cuda.empty_cache()
@@ -991,8 +1071,8 @@ def main():
                   library_ms=tm["chol_library_ms"])
     kernels = [
         dict(row("gram_lmcsm", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:154",
-                 k1[(512, False)], "B=32 n=512 Q=5 D=24"),
-             d48_masked=k1[(512, True, 48)]),
+                 k1["B=32 n=512"], "B=32 n=512 Q=5 D=24"),
+             d48_masked=k1["B=32 n=512 D=48 masked"], more_shapes=k1),
         dict(row("gram_lmcsm_bwd", "gram.cuh", "medgp_tpu/ops/pallas_gram.py:248",
                  k2[(128, True)], "B=128 n=512 Q=5 D=24 masked"),
              d48=k2[(128, True, 48)]),

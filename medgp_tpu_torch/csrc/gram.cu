@@ -43,22 +43,32 @@ static cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
   return cudaSuccess;
 }
 
+// K1 over a launch plan (ops/cuda_gram.py:gram_plan): `ctas` CTAs, each a
+// run of `items_per_cta` consecutive lower-triangle tile pairs of one
+// matrix, so ctas = batch * ceil(pairs / items_per_cta); a plan that does
+// not cover every tile pair exactly once is refused.
 extern "C" int medgp_gram_lmcsm(const float* t, const int* meta,
                                 const float* B, const float* mu,
                                 const float* v, const float* mask, float* K,
-                                int batch, int n, int Q, int D,
-                                void* stream) {
-  if (Q <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const long long ntile = (n + medgp::kGramTile - 1) / medgp::kGramTile;
-  const long long blocks = (long long)batch * ntile * ntile;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)Q * D * D;  // the B_q stack
+                                int batch, int n, int Q, int D, int tile,
+                                int items_per_cta, int ctas, void* stream) {
+  if (batch <= 0 || n <= 0 || Q <= 0 || D <= 0 || tile != medgp::kFwdTile ||
+      items_per_cta <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long nt = (n + medgp::kFwdTile - 1) / medgp::kFwdTile;
+  const long long pairs = nt * (nt + 1) / 2;
+  const long long runs = (pairs + items_per_cta - 1) / items_per_cta;
+  if (items_per_cta > pairs || (long long)batch * runs != ctas) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(float) * medgp::gram_fwd_smem_floats(Q, D);
   cudaError_t err = reserve_smem(medgp::gram_lmcsm_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 block(medgp::kGramTile, medgp::kGramRowsPerPass);
-  medgp::gram_lmcsm_kernel<<<(unsigned)blocks, block, smem,
+  medgp::gram_lmcsm_kernel<<<(unsigned)ctas, medgp::kFwdThreads, smem,
                              (cudaStream_t)stream>>>(t, meta, B, mu, v, mask,
-                                                     K, n, Q, D);
+                                                     K, n, Q, D, items_per_cta,
+                                                     (int)runs);
   return (int)cudaGetLastError();
 }
 

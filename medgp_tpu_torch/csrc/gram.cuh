@@ -11,33 +11,70 @@
 // unit diagonal.
 //
 // What bounds it on this card: the output. Each matrix is 4 n^2 bytes
-// written once, while the inputs are O(n + Q D^2). The arithmetic per output
-// entry is Q exponentials plus a few FMAs, so the kernel is write-bound as
-// long as no per-entry sin/cos is evaluated.
+// written once, while the inputs are O(n + Q D^2): at B = 32, n = 512 that
+// is 33.5 MB, 0.010 ms at 3.35 TB/s. Beside it, the exponentials: one
+// expf per distinct entry and component, B Q n (n + 1) / 2 of them, on
+// the SFU's 16 results per SM and clock (0.005 ms at the same shape).
+// The FMAs around them are under a third of either.
 //
 // What the design does about it:
-//   * the TPU's one-hot MXU gather and its f32x2 split (pallas_gram.py:12-16,
-//     117-140) are dropped: the patient's B_q stack (Q*D*D floats, 11.5 KB at
-//     Q=5, D=24, 45 KB at D=48) sits in dynamic shared memory, sized at
-//     launch (up to the card's 227 KB a block), and B_q[meta_i, meta_j] is a
-//     gather;
-//   * cos(2 pi mu (t_i - t_j)) = c_i c_j + s_i s_j (rank-2 identity, as the
-//     Pallas kernel uses): a 32x32 tile needs 64 sincos per component, not
-//     1024 cos, leaving one expf per entry and component;
-//   * 32x32 output tiles, 256 threads, four rows per thread; stores are
-//     row-contiguous across a warp. Any n works (the ragged edge is masked).
+//   * K is symmetric: only the lower-triangle 64x64 tile pairs (I >= J)
+//     are computed; an off-diagonal tile is stored in its own place and,
+//     through a padded staging buffer in shared memory (64 x 65 floats),
+//     transposed into (J, I); a diagonal tile goes out of the staging
+//     buffer with its upper half taken from its lower half. The expf
+//     calls and coefficient gathers are halved, the bytes written are not,
+//     and K equals its transpose bitwise whether or not B_q is;
+//   * a CTA walks a contiguous run of one matrix's tile pairs (row-major
+//     over the lower triangle); the launch plan, run length and CTA count,
+//     is medgp_tpu_torch/ops/cuda_gram.py:gram_plan. The run's prologue is
+//     paid once: the patient's B_q stack (Q*D*D floats, 11.5 KB at Q=5,
+//     D=24) into shared memory, mu_q and the exponent's coefficient per
+//     component, and min(t) by warp shuffles with a single barrier;
+//   * per tile pair, the cos and sin of 2 pi mu_q t of its 64 rows and 64
+//     columns (rank-2 identity, as the Pallas kernel uses:
+//     cos(2 pi mu (t_i - t_j)) = c_i c_j + s_i s_j), with their t, meta
+//     and mask, go into shared memory in one pass by all 256 threads
+//     (Q / 2 sincosf a thread against 16 Q expf), from t, meta and mask
+//     that each thread loaded into registers during the previous tile
+//     pair. They are built per tile pair and not once per run: a run's
+//     columns span the whole matrix, and tables of every point (8 Q n
+//     bytes) would not fit beside a D = 64 stack at n = 2048. Two barriers
+//     per tile pair: tables built, then the staging buffer filled; none
+//     inside the inner loop;
+//   * each thread holds a 4x4 micro-tile, rows ty + 16 m, four consecutive
+//     columns, and stores each row as one 16-byte float4 (a warp writes two
+//     256-byte rows); the mirrored tile leaves the staging buffer the same
+//     way (a TMA bulk store was not tried: a 64-column tile row is one
+//     256-byte run either way). n not a multiple of 4 takes scalar stores
+//     (rows are then not 16-byte aligned); the ragged edge is masked;
+//   * each lower entry's arithmetic is the earlier one-tile-per-CTA K1's: the same
+//     per-point sincosf, d = t_i - t_j, cc = c_i c_j + s_i s_j and
+//     acc += coef * (cc * expf(e d^2)) over q in ascending order, so the
+//     lower triangle, the half K3 reads, keeps its bits.
 #pragma once
 
 namespace medgp {
 
 constexpr float kRefPi = 3.14159265f;  // medgp_tpu/models/params.py:REF_PI
-constexpr int kGramTile = 32;
-constexpr int kGramRowsPerPass = 8;    // blockDim = (32, 8)
-constexpr int kGramThreads = kGramTile * kGramRowsPerPass;
 constexpr unsigned kGramWarpMask = 0xffffffffu;
 constexpr size_t kSmemPerBlock = 232448;  // shared memory a Hopper block may opt into
 
-__global__ void gram_lmcsm_kernel(
+constexpr int kFwdTile = 64;               // tile pair edge
+constexpr int kFwdThreads = 256;           // 16 x 16 threads, 4x4 entries each
+constexpr int kFwdStage = kFwdTile + 1;    // staging row stride (padded)
+constexpr int kFwdCtasPerSm = 3;           // register budget: 85 a thread
+
+// Dynamic shared memory of gram_lmcsm_kernel in floats (ints alias floats):
+// cos and sin of the tile's columns and rows 4*Q*64, their t, mask and meta
+// 6*64, the staging buffer 64*65, mu and exponent coefficients 2*Q, eight
+// warp minima, and the B_q stack Q*D*D (last, so that the tables above
+// stay 16-byte aligned for float4 reads).
+__host__ __device__ inline int gram_fwd_smem_floats(int Q, int D) {
+  return 4 * Q * kFwdTile + 6 * kFwdTile + kFwdTile * kFwdStage + 2 * Q + 8 + Q * D * D;
+}
+
+__global__ void __launch_bounds__(kFwdThreads, kFwdCtasPerSm) gram_lmcsm_kernel(
     const float* __restrict__ t,     // (batch, n)
     const int* __restrict__ meta,    // (batch, n)
     const float* __restrict__ B,     // (batch, Q, D, D)
@@ -45,93 +82,213 @@ __global__ void gram_lmcsm_kernel(
     const float* __restrict__ v,     // (batch, Q)
     const float* __restrict__ mask,  // (batch, n) or nullptr
     float* __restrict__ K,           // (batch, n, n)
-    int n, int Q, int D) {
-  extern __shared__ float Bs[];  // (Q, D, D), sized at launch
-  __shared__ float red[kGramThreads];
-  __shared__ float ti[kGramTile], tj[kGramTile];
-  __shared__ int mi[kGramTile], mj[kGramTile];
-  __shared__ float ci[kGramTile], si[kGramTile], cj[kGramTile], sj[kGramTile];
+    int n, int Q, int D, int items_per_cta, int runs) {
+  constexpr int T = kFwdTile, ST = kFwdStage;
+  extern __shared__ __align__(16) float smem[];
+  const int TQ = Q * T;
+  float* cJ = smem;            // (Q, 64) cos 2 pi mu_q t of the tile's columns
+  float* sJ = cJ + TQ;         // (Q, 64) sin
+  float* cI = sJ + TQ;         // (Q, 64) the rows'
+  float* sI = cI + TQ;
+  float* tI = sI + TQ;         // (64) t - min(t), rows
+  float* tJ = tI + T;          // columns
+  float* kI = tJ + T;          // mask, rows
+  float* kJ = kI + T;
+  int* mI = (int*)(kJ + T);    // meta, rows
+  int* mJ = mI + T;
+  float* S = (float*)(mJ + T); // (64, 65) staging
+  float* mus = S + T * ST;     // (Q) mu_q
+  float* es = mus + Q;         // (Q) -2 (pi v_q)^2
+  float* red = es + Q;         // (8) warp minima
+  float* Bs = red + 8;         // (Q, D, D)
 
-  const int ntile = (n + kGramTile - 1) / kGramTile;
-  const long long tiles = (long long)ntile * ntile;
-  const int b = (int)(blockIdx.x / tiles);
-  const int tile = (int)(blockIdx.x % tiles);
-  const int row0 = (tile / ntile) * kGramTile;
-  const int col0 = (tile % ntile) * kGramTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kGramTile + tx;
-
+  const int b = blockIdx.x / runs;
+  const int nt = (n + T - 1) / T;
+  const int pairs = nt * (nt + 1) / 2;
+  const int k0 = (blockIdx.x - b * runs) * items_per_cta;
+  const int k1 = min(k0 + items_per_cta, pairs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int DD = D * D;
   const float* tb = t + (size_t)b * n;
   const int* mb = meta + (size_t)b * n;
-  const int bstack = Q * D * D;
-  for (int k = tid; k < bstack; k += kGramThreads) {
-    Bs[k] = B[(size_t)b * bstack + k];
-  }
-
-  // min(t) over the whole row, padding included (pallas_gram.py:397)
-  float tmin = 3.402823466e38f;
-  for (int k = tid; k < n; k += kGramThreads) tmin = fminf(tmin, tb[k]);
-  red[tid] = tmin;
-  __syncthreads();
-  for (int s = kGramThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] = fminf(red[tid], red[tid + s]);
-    __syncthreads();
-  }
-  tmin = red[0];
-
-  if (tid < kGramTile) {
-    const int i = row0 + tid;
-    ti[tid] = i < n ? tb[i] - tmin : 0.0f;
-    mi[tid] = i < n ? mb[i] : 0;
-  } else if (tid < 2 * kGramTile) {
-    const int j = col0 + tid - kGramTile;
-    tj[tid - kGramTile] = j < n ? tb[j] - tmin : 0.0f;
-    mj[tid - kGramTile] = j < n ? mb[j] : 0;
-  }
-
-  float acc[kGramTile / kGramRowsPerPass];
-#pragma unroll
-  for (int m = 0; m < kGramTile / kGramRowsPerPass; ++m) acc[m] = 0.0f;
-
-  for (int q = 0; q < Q; ++q) {
-    const float muq = mu[(size_t)b * Q + q];
-    const float pv = kRefPi * v[(size_t)b * Q + q];
-    const float e = -2.0f * (pv * pv);
-    __syncthreads();  // tiles loaded / previous component's sincos consumed
-    if (tid < kGramTile) {
-      sincosf((2.0f * kRefPi) * muq * ti[tid], &si[tid], &ci[tid]);
-    } else if (tid < 2 * kGramTile) {
-      const int k = tid - kGramTile;
-      sincosf((2.0f * kRefPi) * muq * tj[k], &sj[k], &cj[k]);
-    }
-    __syncthreads();
-    const float* Bq = Bs + q * D * D;
-#pragma unroll
-    for (int m = 0; m < kGramTile / kGramRowsPerPass; ++m) {
-      const int r = ty + m * kGramRowsPerPass;
-      const float d = ti[r] - tj[tx];
-      const float coef = Bq[mi[r] * D + mj[tx]];
-      const float cc = ci[r] * cj[tx] + si[r] * sj[tx];
-      acc[m] += coef * (cc * expf(e * (d * d)));
-    }
-  }
-
+  const float* mkb = mask != nullptr ? mask + (size_t)b * n : nullptr;
   float* Kb = K + (size_t)b * n * n;
-  const int j = col0 + tx;
+  const bool vec = (n & 3) == 0;  // rows 16-byte aligned: float4 stores
+
+  // the run's prologue: B_q stack, per-component constants, min(t) over the
+  // whole row, padding included (pallas_gram.py:397)
+#pragma unroll 8
+  for (int k = tid; k < Q * DD; k += kFwdThreads) Bs[k] = B[(size_t)b * Q * DD + k];
+  if (tid < Q) {
+    const float pv = kRefPi * v[(size_t)b * Q + tid];
+    mus[tid] = mu[(size_t)b * Q + tid];
+    es[tid] = -2.0f * (pv * pv);
+  }
+  float tmin = 3.402823466e38f;
+  for (int k = tid; k < n; k += kFwdThreads) tmin = fminf(tmin, tb[k]);
+  for (int off = 16; off > 0; off >>= 1) {
+    tmin = fminf(tmin, __shfl_xor_sync(kGramWarpMask, tmin, off));
+  }
+  if (lane == 0) red[warp] = tmin;
+  __syncthreads();
+  tmin = red[0];
 #pragma unroll
-  for (int m = 0; m < kGramTile / kGramRowsPerPass; ++m) {
-    const int i = row0 + ty + m * kGramRowsPerPass;
-    if (i < n && j < n) {
-      float val = acc[m];
-      if (mask != nullptr) {
-        const float mk_i = mask[(size_t)b * n + i];
-        const float mk_j = mask[(size_t)b * n + j];
-        val = val * (mk_i * mk_j) + (i == j ? 1.0f - mk_i : 0.0f);
+  for (int w = 1; w < kFwdThreads / 32; ++w) tmin = fminf(tmin, red[w]);
+
+  // first tile pair of the run: item k is (I, J) with k = I (I + 1) / 2 + J
+  int I = (int)((sqrtf(8.0f * (float)k0 + 1.0f) - 1.0f) * 0.5f);
+  while (I > 0 && I * (I + 1) / 2 > k0) --I;
+  while ((I + 1) * (I + 2) / 2 <= k0) ++I;
+  int J = k0 - I * (I + 1) / 2;
+
+  // thread tid serves point p = tid % 128 of a tile pair (a row for p < 64,
+  // else a column) and components q = tid / 128, + 2, ...: it holds the
+  // point's t, meta and mask in registers, loaded one tile pair ahead
+  // (predicated loads, nothing waits on them before the next tile pair;
+  // t beyond n reads as min(t), so that t - min(t) is 0 there)
+  const int p = tid % (2 * T), loc = p % T;
+  const bool pcol = p >= T;
+  float pt, pk;
+  int pm;
+  auto load_point = [&](int row0, int col0) {
+    const int g = (pcol ? col0 : row0) + loc;
+    pt = tmin;
+    pm = 0;
+    pk = 0.0f;
+    if (g < n) {
+      pt = tb[g];
+      pm = mb[g];
+      if (mkb != nullptr) pk = mkb[g];
+    }
+  };
+  load_point(I * T, J * T);
+
+  for (int k = k0; k < k1; ++k) {
+    const int row0 = I * T, col0 = J * T;
+    const bool diag = I == J;
+    // tables of the tile pair's 64 rows and 64 columns
+    const float tv = pt - tmin;
+    for (int q = tid / (2 * T); q < Q; q += kFwdThreads / (2 * T)) {
+      float s, c;
+      sincosf((2.0f * kRefPi) * mus[q] * tv, &s, &c);
+      (pcol ? cJ : cI)[q * T + loc] = c;
+      (pcol ? sJ : sI)[q * T + loc] = s;
+    }
+    if (tid < 2 * T) {
+      (pcol ? tJ : tI)[loc] = tv;
+      (pcol ? mJ : mI)[loc] = pm;
+      (pcol ? kJ : kI)[loc] = pk;
+    }
+    __syncthreads();  // tables built; the previous tile's staging read
+    if (++J > I) {    // the next tile pair, its points loaded during this one
+      ++I;
+      J = 0;
+    }
+    if (k + 1 < k1) load_point(I * T, J * T);
+
+    float acc[4][4], rsq[4][4];
+    int mrow[4], mcol[4];
+    const float4 tj4 = *reinterpret_cast<const float4*>(tJ + 4 * tx);
+    const float tj[4] = {tj4.x, tj4.y, tj4.z, tj4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mcol[c] = mJ[4 * tx + c];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ty + 16 * m;
+      mrow[m] = mI[r] * D;
+      const float ti = tI[r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float d = ti - tj[c];
+        rsq[m][c] = d * d;
+        acc[m][c] = 0.0f;
       }
-      Kb[(size_t)i * n + j] = val;
+    }
+    for (int q = 0; q < Q; ++q) {
+      const float e = es[q];
+      const float* Bq = Bs + q * DD;
+      const float4 cj4 = *reinterpret_cast<const float4*>(cJ + q * T + 4 * tx);
+      const float4 sj4 = *reinterpret_cast<const float4*>(sJ + q * T + 4 * tx);
+      const float cj[4] = {cj4.x, cj4.y, cj4.z, cj4.w};
+      const float sj[4] = {sj4.x, sj4.y, sj4.z, sj4.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int r = ty + 16 * m;
+        const float ci = cI[q * T + r], si = sI[q * T + r];
+        const float* Brow = Bq + mrow[m];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float coef = Brow[mcol[c]];
+          const float cc = ci * cj[c] + si * sj[c];
+          acc[m][c] += coef * (cc * expf(e * rsq[m][c]));
+        }
+      }
+    }
+
+    // mask_gram epilogue, then the tile's own place (off-diagonal) and the
+    // staging buffer
+    const int j0 = col0 + 4 * tx;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ty + 16 * m, i = row0 + r;
+      if (mkb != nullptr) {
+        const float mk_i = kI[r];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float mk_j = kJ[4 * tx + c];
+          acc[m][c] = acc[m][c] * (mk_i * mk_j) + (i == j0 + c ? 1.0f - mk_i : 0.0f);
+        }
+      }
+      if (!diag && i < n) {
+        float* dst = Kb + (size_t)i * n + j0;
+        if (vec && j0 < n) {
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (j0 + c < n) dst[c] = acc[m][c];
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) S[r * ST + 4 * tx + c] = acc[m][c];
+    }
+    __syncthreads();  // staging filled
+
+    // out of the staging buffer: the tile (J, I) as the transpose of (I, J);
+    // a diagonal tile whole, its upper half from its lower half
+    const int i0 = row0 + 4 * tx;  // output columns
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = ty + 16 * m, i = col0 + r;  // output row
+      float val[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int lc = 4 * tx + c;
+        val[c] = diag && r >= lc ? S[r * ST + lc] : S[lc * ST + r];
+      }
+      if (i < n) {
+        float* dst = Kb + (size_t)i * n + i0;
+        if (vec && i0 < n) {
+          *reinterpret_cast<float4*>(dst) = make_float4(val[0], val[1], val[2], val[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (i0 + c < n) dst[c] = val[c];
+          }
+        }
+      }
     }
   }
 }
+
+// Launch geometry shared with K2 (gram_bwd_kernel): 32x8 threads, bands of
+// 32 rows.
+constexpr int kGramTile = 32;
+constexpr int kGramRowsPerPass = 8;    // blockDim = (32, 8)
+constexpr int kGramThreads = kGramTile * kGramRowsPerPass;
 
 // K2: the gram's VJP for Hopper (sm_90a), deterministic, no atomics.
 //

@@ -30,8 +30,9 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # t, meta, B, mu, v, mask, K, batch, n, Q, D, stream
-    "medgp_gram_lmcsm": [_P] * 7 + [_I] * 4 + [_P],
+    # t, meta, B, mu, v, mask, K, batch, n, Q, D, tile, items_per_cta,
+    # ctas, stream
+    "medgp_gram_lmcsm": [_P] * 7 + [_I] * 7 + [_P],
     # K, noise, y, L, alpha, linvd, batch, n, cluster, stream
     "medgp_chol_solve": [_P] * 6 + [_I] * 3 + [_P],
     # L, linvd, X, batch, n, stream

@@ -23,11 +23,46 @@ from medgp_tpu_torch.ops.gram import gram_lmcsm
 from medgp_tpu_torch.ops.nlml import mask_gram
 
 # Shared memory a block may take on the H100 (227 KB), less a reserve for
-# the kernels' static arrays (under 4 KB each); the C entries check the
-# exact figure on the card.
+# the kernels' static arrays (K1 has none, K2 under 4 KB); the C entries
+# check the exact figure on the card.
 SMEM_BYTES = 232448 - 4096
 BWD_BAND = 32    # rows per band of K2's partial sums
 BWD_CHUNK = 192  # columns per staged chunk of K2 (gram.cuh kBwdChunk)
+
+# K1's launch plan (gram.cuh gram_lmcsm_kernel): 64x64 tile pairs of the
+# lower triangle, 256 threads a CTA, at most 3 CTAs per SM (its
+# __launch_bounds__), on the H100 SXM's 132 SMs. A plan aims at four waves
+# of CTAs, so that the last, partial wave costs little.
+GRAM_TILE = 64
+GRAM_SMS = 132
+GRAM_CTAS_PER_SM = 3
+GRAM_WAVES = 4
+
+
+def fwd_smem_bytes(Q: int, D: int) -> int:
+    """K1's dynamic shared memory (gram.cuh gram_fwd_smem_floats): the cos
+    and sin tables of a tile pair's rows and columns, their t, mask and
+    meta, the 64x65 staging buffer, per-component constants, eight warp
+    minima and the B_q stack."""
+    T = GRAM_TILE
+    return 4 * (4 * Q * T + 6 * T + T * (T + 1) + 2 * Q + 8 + Q * D * D)
+
+
+def gram_plan(batch: int, n: int) -> tuple[int, int, int]:
+    """K1's launch plan for `batch` matrices of order n -> (tile,
+    items_per_cta, ctas). Each matrix has P = T (T + 1) / 2 lower tile
+    pairs (T = ceil(n / 64)), and each CTA walks a run of items_per_cta of
+    them in one matrix, so ctas = batch * ceil(P / items_per_cta). Runs
+    are as long as GRAM_WAVES waves of CTAs allow, and of equal length;
+    below that many tile pairs every CTA takes one."""
+    T = -(-n // GRAM_TILE)
+    pairs = T * (T + 1) // 2
+    if batch == 0 or pairs == 0:
+        return GRAM_TILE, 1, 0
+    target = GRAM_WAVES * GRAM_SMS * GRAM_CTAS_PER_SM
+    per = max(1, min(pairs, batch * pairs // target))
+    per = -(-pairs // -(-pairs // per))  # the same number of runs, evened out
+    return GRAM_TILE, per, batch * -(-pairs // per)
 
 
 def bwd_smem_bytes(G: int, D: int) -> int:
@@ -62,20 +97,22 @@ def gram_lmcsm_fused(t, meta, B, mu, v, mask=None) -> torch.Tensor:
     cuda_build.require(v, "v", f32, (Bt, Q), dev)
     if mask is not None:
         cuda_build.require(mask, "mask", f32, (Bt, n), dev)
-    if 4 * Q * D * D > SMEM_BYTES:
+    if fwd_smem_bytes(Q, D) > SMEM_BYTES:
         raise ValueError(
-            f"gram_lmcsm_fused: the B_q stack (Q*D*D = {Q * D * D} floats) "
-            f"exceeds a block's {SMEM_BYTES} bytes of shared memory"
+            f"gram_lmcsm_fused: Q = {Q}, D = {D} need {fwd_smem_bytes(Q, D)} "
+            f"bytes of shared memory per block (the B_q stack is Q*D*D = "
+            f"{Q * D * D} floats), above {SMEM_BYTES}"
         )
     K = torch.empty((Bt, n, n), dtype=f32, device=dev)
     if Bt == 0 or n == 0:
         return K
+    tile, per, ctas = gram_plan(Bt, n)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
         code = lib.medgp_gram_lmcsm(
             t.data_ptr(), meta.data_ptr(), B.data_ptr(), mu.data_ptr(),
             v.data_ptr(), None if mask is None else mask.data_ptr(),
-            K.data_ptr(), Bt, n, Q, D, cuda_build.stream_of(t),
+            K.data_ptr(), Bt, n, Q, D, tile, per, ctas, cuda_build.stream_of(t),
         )
     cuda_build.check_launch(code, "gram_lmcsm_fused")
     gram_lmcsm_fused.launches += 1
