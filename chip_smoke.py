@@ -27,20 +27,30 @@ Phases (any failure raises and the script exits non-zero):
      test-stage chunk, as utils/hbm.py sizes them at n=512, each with its
      peak device memory against the free memory its budget was taken from;
   5. drive the port's CLI on a 64-patient synthetic cohort: `generate`,
-     `test` (mean_wo_update), `train` (budgets cut, see TRAIN_OPT), `test
+     `test --mode mean_wo_update`, `train` (budgets cut, see TRAIN_OPT), `test
      --mode mean_w_update`; each run with the launch counters set to 0
      just before and read just after, so every kernel of each path must
      have launched, and its peak device memory read; check every
      patient's outputs, train a second time
      (the thetas must repeat bitwise), and re-run one bucket of each test
      mode through the twins (and the first in float64);
-  6. print one JSON line with the kernels' numbers, then the result line.
+  6. the fused CLI `run` (train, kernclust of every fold with the GMM and
+     the KDEs on the card, test in both modes, eval) twice, each with the
+     counters set to 0 just before and read just after: at full width on
+     the same 64 patients with two folds, then `kernclust --fold -1` and
+     `eval` on its files, which must repeat its mode kernel and summary;
+     and on tools/refbudget_run.sh's PT/INR cohort at its reduced budgets,
+     trained from the JAX package's restart draws, where each test mode's
+     MAE must lie within three combined standard errors of the JAX
+     package's (JAX_PTINR_MAE);
+  7. print one JSON line with the kernels' numbers, then the result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -60,6 +70,7 @@ from medgp_tpu_torch.data.synthetic import (
     cluster_thetas, sample_cluster_params, sample_cohort,
     write_reference_format_cohort,
 )
+from medgp_tpu_torch.evaluation.evals import mae_mean_se
 from medgp_tpu_torch.infer.map_train import screen_inits
 from medgp_tpu_torch.infer.online import online_impute, unique_times
 from medgp_tpu_torch.models.gp import PatientData, objective_and_grad
@@ -67,7 +78,10 @@ from medgp_tpu_torch.models.params import LMCSMSpec, theta_from_numpy
 from medgp_tpu_torch.models.priors import hier_gamma_prior
 from medgp_tpu_torch.ops import cuda_build, cuda_chol, cuda_gram
 from medgp_tpu_torch.ops.nlml import jittered_chol_solve
-from medgp_tpu_torch.parallel.runner import MAX_BATCH, _test_prior, train_cohort
+from medgp_tpu_torch.parallel import runner
+from medgp_tpu_torch.parallel.runner import (
+    MAX_BATCH, TEST_MODES, _test_prior, train_cohort,
+)
 from medgp_tpu_torch.utils import hbm
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -104,6 +118,32 @@ TRAIN_OPT = dict(
     random_init_num=16, random_seed=718, top_iteration_num=2,
     iteration_num_per_update=30, online_learn_rate=1e-5, online_momentum=0.9,
 )
+
+# The accuracy phase: tools/refbudget_run.sh's PT/INR cohort (seed 718,
+# 100 patients, 3 latent clusters, 40-220 observations, features 18/19,
+# LMC-SM Q=5 R=2, 10 folds) at the script's reduced budgets: 16 inits, two
+# varEM rounds of 8 SCG evaluations; the rest is the defaults.
+PTINR_SEED = 718
+PTINR_OPT = dict(random_init_num=16, top_iteration_num=2, iteration_num_per_update=8)
+# The JAX package's 16 restart draws for that arm (random_inits from
+# jax.random.key(718)), written by tools/ptinr_jax_inits.py. The phase
+# trains from them in place of the port's own torch.Generator draws, so
+# that both packages' arms start from one initialisation, as the parity
+# tests feed both the same inits: the bin-level SE below does not cover
+# the spread between two sets of 16 draws (PERF.md §6).
+PTINR_JAX_INITS = os.path.join(ROOT, "tools", "ptinr_jax_inits.json")
+# The JAX package's MAE +- SE on that arm (mean, and SE = std (ddof 1) /
+# sqrt(200), over the 200 per-(patient, feature) MAE values), which the
+# port must match in each mode: one run of tools/refbudget_run.sh's second
+# half with JAX_PLATFORMS=cpu (one device, the host KDE path) on five x86
+# cores, 32 minutes; and, for mean_w_update, SCALE.md §6's reduced arm (a
+# TPU v5e run, from the same draws).
+JAX_PTINR_MAE = {
+    "mean_wo_update": {"CPU run": (0.6216806508122743, 0.014926084397429972)},
+    "mean_w_update": {"CPU run": (0.5500917315404386, 0.014420121124858307),
+                      "SCALE.md §6 (TPU v5e)": (0.5382, 0.0141)},
+}
+MAE_SIGMAS = 3.0  # |MAE_port - MAE_jax| <= 3 combined standard errors
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): fp32
 # outside the tensor cores, and device memory. bound_ms is the larger of the two
@@ -691,6 +731,26 @@ def memory_budgets(dev, n=512, restarts=16):
     return out
 
 
+def generate_experiment(prefix, feature_config, opt, Q, R, folds, cohort="synth"):
+    """CLI `generate` of an LMC-SM hier-gamma experiment under
+    .chip_smoke/exp/ from the cohort staged in .chip_smoke/data/{cohort};
+    returns its exp_setup.json."""
+    opt_path = os.path.join(WORK, f"opt_{prefix}.json")
+    with open(opt_path, "w") as f:
+        json.dump(opt, f)
+    cli([
+        "generate", "--data-root", os.path.join(WORK, "data"),
+        "--exp-root", os.path.join(WORK, "exp"), "--cohort", cohort,
+        "--feature-config", feature_config, "--opt-config", opt_path,
+        "--kernel", "LMC-SM", "--prior", "hier-gamma", "--Q", str(Q),
+        "--R", str(R), "--eta", "0.01", "--beta-lam", "0.01",
+        "--cv-fold-num", str(folds), "--exp-prefix", prefix,
+    ])
+    return os.path.join(
+        WORK, "exp", f"{prefix}_k7_q{Q}_r{R}_p2_e0.01", "config", "exp_setup.json"
+    )
+
+
 def stage_cohort():
     """Stage the 64-patient cohort and `generate` the experiment through the
     CLI, with the mode kernel (cluster 0's ground truth) for "all" and
@@ -703,20 +763,7 @@ def stage_cohort():
     recs = sample_cohort(SEED, spec, 64, n_clusters=4, n_obs_range=(100, 400))
     write_reference_format_cohort(os.path.join(WORK, "data", "synth"), recs, features)
     print(f"staged {len(recs)} patients ({sum(r.n_obs for r in recs)} observations)")
-    opt_path = os.path.join(WORK, "opt_smoke.json")
-    with open(opt_path, "w") as f:
-        json.dump(TRAIN_OPT, f)
-    cli([
-        "generate", "--data-root", os.path.join(WORK, "data"),
-        "--exp-root", os.path.join(WORK, "exp"), "--cohort", "synth",
-        "--feature-config", feature_config, "--opt-config", opt_path,
-        "--kernel", "LMC-SM", "--prior", "hier-gamma", "--Q", str(Q),
-        "--R", str(R), "--eta", "0.01", "--beta-lam", "0.01",
-        "--cv-fold-num", "10", "--exp-prefix", "smoke",
-    ])
-    cfg_path = os.path.join(
-        WORK, "exp", "smoke_k7_q5_r8_p2_e0.01", "config", "exp_setup.json"
-    )
+    cfg_path = generate_experiment("smoke", feature_config, TRAIN_OPT, Q=Q, R=R, folds=10)
     cfg = ExperimentConfig.from_json(cfg_path)
     theta = cluster_thetas(SEED, spec, 4)[0]
     for fold in range(-1, cfg.cv_fold_num):
@@ -890,6 +937,143 @@ def recheck_update_bucket(cfg, recs, theta, dev):
           f"{d_theta:.3e} after moving {moved:.3e} from the mode")
 
 
+def run_fused(name, cfg_path, dev):
+    """The CLI `run` through run_path (every kernel must launch); returns
+    (seconds, counts, {mode: summary}) with the summary line it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        seconds, counts = run_path(
+            name, ["run", "--cfg", cfg_path, "--device", str(dev)], tuple(KERNELS))
+    text = out.getvalue()
+    print(text, end="")
+    summary = json.loads([x for x in text.splitlines() if x.startswith("{")][-1])
+    for mode in TEST_MODES:
+        for k in ("mae", "ci_ratio", "nll"):
+            check(np.isfinite(summary[mode][k]), f"{name}: {mode} {k} not finite")
+    return seconds, counts, summary
+
+
+def check_mode_kernels(cfg, folds):
+    """Every fold's gmm mode kernel: finite, 1 <= newQ <= Q, the length
+    of an LMC-SM(newQ, D, R) theta."""
+    got = {}
+    for fold in folds:
+        theta, newQ = formats.read_mode_kernel(cfg.exp_kernel_dir, fold, "gmm")
+        check(1 <= newQ <= cfg.Q, f"fold {fold}: {newQ} mode components")
+        check(theta.shape == (LMCSMSpec(newQ, cfg.D, cfg.R).n_hyp,),
+              f"fold {fold}: mode theta of {theta.shape}")
+        check(bool(np.all(np.isfinite(theta))), f"fold {fold}: mode theta not finite")
+        got[fold] = (theta, newQ)
+    print(f"mode kernels: components by fold {({f: q for f, (_, q) in got.items()})}")
+    return got
+
+
+def run_stage_seconds(cfg):
+    """The `run` record of log/metrics.jsonl: each stage's seconds."""
+    with open(os.path.join(cfg.exp_log_dir, "metrics.jsonl")) as f:
+        rec = [json.loads(x) for x in f if '"stage": "run"' in x][-1]
+    return {k[: -len("_seconds")]: rec[k] for k in rec if k.endswith("_seconds")}
+
+
+def run_full_width(dev):
+    """`run` at the canonical width on the staged 64-patient cohort, two
+    folds; then the staged `kernclust --fold -1` and `eval` on its files."""
+    cfg_path = generate_experiment(
+        "run", os.path.join(ROOT, "examples", "feature_all.json"), TRAIN_OPT,
+        Q=Q, R=R, folds=2)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
+    seconds, counts, summary = run_fused("run (full width)", cfg_path, dev)
+    check_train_outputs(cfg, recs)
+    modes = check_mode_kernels(cfg, (-1, 0, 1))
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+    stages = run_stage_seconds(cfg)
+    print(f"run (full width): stage seconds {json.dumps(stages)}; summary "
+          f"{json.dumps(summary)}")
+    cli(["kernclust", "--cfg", cfg_path, "--fold", "-1", "--device", str(dev)])
+    theta, newQ = formats.read_mode_kernel(cfg.exp_kernel_dir, -1, "gmm")
+    d = float(np.abs(theta - modes[-1][0]).max()) if newQ == modes[-1][1] else np.inf
+    print(f"kernclust --fold -1 from the files: {newQ} components, max |d theta| "
+          f"against run's in-memory handoff {d:.3e}")
+    check(newQ == modes[-1][1] and np.array_equal(theta, modes[-1][0]),
+          "kernclust from run's train files differs from run's handoff")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli(["eval", "--cfg", cfg_path, "--test-mode", "mean_w_update"])
+    ev = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"eval mean_w_update: {json.dumps(ev)}")
+    check(ev == summary["mean_w_update"], "eval's summary differs from run's")
+    return seconds, counts, stages
+
+
+def stage_ptinr(prefix, opt):
+    """Stage the PT/INR cohort under .chip_smoke/data/ptinr and `generate`
+    its 10-fold experiment; returns (cfg_path, recs)."""
+    recs = sample_cohort(PTINR_SEED, LMCSMSpec(5, 2, 2), n_patients=100,
+                         n_clusters=3, n_obs_range=(40, 220))
+    write_reference_format_cohort(os.path.join(WORK, "data", "ptinr"), recs, [18, 19])
+    cfg_path = generate_experiment(
+        prefix, os.path.join(ROOT, "examples", "feature_PT_INR.json"),
+        opt, Q=5, R=2, folds=10, cohort="ptinr")
+    return cfg_path, recs
+
+
+def jax_ptinr_inits():
+    """The JAX package's restart draws for the PT/INR arm, (16, H) float32."""
+    with open(PTINR_JAX_INITS) as f:
+        return torch.tensor(json.load(f)["inits"], dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def restart_draws(inits):
+    """Train from `inits` in place of the port's own restart draws; fails
+    unless the train stage asked for exactly that many."""
+    drawn = []
+
+    def given(seed, spec, bounds, n):
+        check(tuple(inits.shape) == (n, spec.n_hyp),
+              f"restart draws of {tuple(inits.shape)}, train asks ({n}, {spec.n_hyp})")
+        drawn.append(n)
+        return inits.clone()
+
+    own = runner.random_inits
+    runner.random_inits = given
+    try:
+        yield
+    finally:
+        runner.random_inits = own
+    check(len(drawn) == 1, f"train drew its restarts {len(drawn)} times")
+
+
+def run_accuracy(dev):
+    """`run` on the PT/INR cohort at the reduced budgets from the JAX
+    package's restart draws: both modes' outputs complete and finite, and
+    each mode's MAE within MAE_SIGMAS combined standard errors of the JAX
+    package's."""
+    cfg_path, recs = stage_ptinr("ptinr", PTINR_OPT)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    with restart_draws(jax_ptinr_inits()):
+        seconds, counts, summary = run_fused("run (PT/INR accuracy)", cfg_path, dev)
+    check_mode_kernels(cfg, range(-1, cfg.cv_fold_num))
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+    stages = run_stage_seconds(cfg)
+    got = {m: mae_mean_se(cfg.exp_test_dir, m, cfg.feature_list) for m in TEST_MODES}
+    for mode in TEST_MODES:
+        m, se, n = got[mode]
+        for arm, (mj, sej) in JAX_PTINR_MAE[mode].items():
+            lim = MAE_SIGMAS * float(np.hypot(se, sej))
+            print(f"PT/INR {mode}: port MAE {m:.4f} +- {se:.4f} (N={n}), JAX package "
+                  f"({arm}) {mj:.4f} +- {sej:.4f}; |d| {abs(m - mj):.4f} against "
+                  f"{MAE_SIGMAS:g} combined SE {lim:.4f}")
+            check(abs(m - mj) <= lim, f"PT/INR {mode}: MAE {m} is {abs(m - mj)} "
+                  f"from the JAX package's {mj} ({arm}), above {lim}")
+    print(f"run (PT/INR): stage seconds {json.dumps(stages)}; summary "
+          f"{json.dumps(summary)}")
+    return seconds, counts, stages, got
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1019,7 +1203,7 @@ def main():
     cfg_path, cfg, recs, theta = stage_cohort()
     base = ["--cfg", cfg_path, "--device", str(dev)]
     wo_s, wo = run_path(
-        "test (mean_wo_update)", ["test", *base, "--alg", "gmm"],
+        "test (mean_wo_update)", ["test", *base, "--alg", "gmm", "--mode", "mean_wo_update"],
         ("gram_lmcsm", "chol_solve", "tri_inv"),
     )
     n_pred = check_test_outputs(cfg, recs, "mean_wo_update")
@@ -1051,8 +1235,14 @@ def main():
     recheck_update_bucket(cfg, recs, theta, dev)
     phase_done("test mean_w_update")
 
+    run_s, run_c, run_stages = run_full_width(dev)
+    phase_done("run (full width)")
+    acc_s, acc_c, acc_stages, acc_mae = run_accuracy(dev)
+    phase_done("run (PT/INR accuracy)")
+
     by_path = {
-        name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name]}
+        name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
+               "run": run_c[name], "run_ptinr": acc_c[name]}
         for name in KERNELS
     }
     src = "medgp_tpu_torch/csrc/"
@@ -1087,6 +1277,9 @@ def main():
     ]
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}; "
           f"objective+gradient evals/s at B=128 n=512: {rates['kernels']:.1f}")
+    print(f"run stages (s): full width {json.dumps(run_stages)} in {run_s:.2f}; "
+          f"PT/INR {json.dumps(acc_stages)} in {acc_s:.2f}; PT/INR MAE (mean, SE, N) "
+          f"{json.dumps(acc_mae)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,15 @@ counterpart of the JAX module at the same path. This package imports
 host code the port needs is carried here in its own copy.
 
 Ported so far: the train stage (restart screen, hier-gamma varEM over
-SCG, or SCG alone; CLI ``train``) and the test stage in both modes (online
-one-step-ahead imputation with a given mode kernel, ``mean_wo_update``
-and ``mean_w_update``), with all five TPU kernels written by hand in CUDA
-(``csrc/``): the LMC-SM gram (K1) and its backward (K2), the fused
-Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
-triangular inverse (K5). Not yet: clustering, evaluation, the samplers,
-the row-blocked path for large patients, checkpoints, several devices.
+SCG, or SCG alone; per-bucket checkpoints; CLI ``train``), kernel
+clustering (GMM + BIC and the KDE mode kernels; CLI ``kernclust``), the
+test stage in both modes (online one-step-ahead imputation with a given
+mode kernel, ``mean_wo_update`` and ``mean_w_update``), evaluation (CLI
+``eval``) and the fused ``run``, with all five TPU kernels written by
+hand in CUDA (``csrc/``): the LMC-SM gram (K1) and its backward (K2), the
+fused Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
+triangular inverse (K5). Not yet: the samplers, the row-blocked path for
+large LMC-SM patients, several devices.
 """
 
 import torch

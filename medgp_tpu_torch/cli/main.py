@@ -1,15 +1,20 @@
-"""Command-line interface of the port: `generate`, `train` and `test`.
+"""Command-line interface of the port: the reference's stages, staged or
+fused.
 
-    python -m medgp_tpu_torch.cli.main generate --data-root ... --exp-root ...
-    python -m medgp_tpu_torch.cli.main train --cfg .../exp_setup.json
-    python -m medgp_tpu_torch.cli.main test --cfg .../exp_setup.json --alg gmm \
-        --mode mean_w_update
+    python -m medgp_tpu_torch.cli.main generate  --data-root ... --exp-root ...
+    python -m medgp_tpu_torch.cli.main train     --cfg .../exp_setup.json
+    python -m medgp_tpu_torch.cli.main kernclust --cfg ... [--fold -1] --alg gmm
+    python -m medgp_tpu_torch.cli.main test      --cfg ... --alg gmm [--mode M]
+    python -m medgp_tpu_torch.cli.main eval      --cfg ... --test-mode mean_w_update
+    python -m medgp_tpu_torch.cli.main run       --cfg ...  # all stages, one process
 
 Counterpart of the same subcommands of ``medgp_tpu/cli/main.py``; all
 read and write the reference-format artifacts, so either package's output
-drives the other's next stage. `train` and `test` run on the CUDA card;
-without one they stop with a message unless `--device cpu` asks for the
-CPU (the kernels' plain twins). The other stages are not ported yet.
+drives the other's next stage. `train`, `kernclust`, `test` and `run` run
+on the CUDA card; without one they stop with a message unless `--device
+cpu` asks for the CPU (the kernels' plain twins). `eval` is host numpy.
+`test` runs both test modes unless `--mode` picks one. Not ported yet: the
+samplers (`hmc`, `run --sampler`) and several devices.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import time
 
 import numpy as np
 import torch
+
+from medgp_tpu_torch.parallel.runner import TEST_MODES
 
 log = logging.getLogger("medgp_tpu_torch")
 
@@ -116,12 +123,117 @@ def cmd_test(args):
     t0 = time.time()
     test_cohort(
         cfg, records, folds=folds, kernclust_alg=args.alg,
-        modes=(args.mode,), device=device,
+        modes=TEST_MODES if args.mode is None else (args.mode,), device=device,
     )
     log.info(
         "tested %d patients on %s in %.1fs",
         len(records), device, time.time() - t0,
     )
+
+
+def cmd_kernclust(args):
+    from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold
+    from medgp_tpu_torch.parallel.runner import stage_metrics
+
+    device = _device(args)
+    cfg = _load_cfg(args.cfg)
+    folds = [args.fold] if args.fold is not None else range(-1, cfg.cv_fold_num)
+    metrics = stage_metrics(cfg)
+    cv = cfg.cv_assign()
+    for fold in folds:
+        _, newQ = kernel_clustering_fold(
+            cfg.spec(), cfg.exp_train_dir, cfg.exp_kernel_dir, cfg.pans(), cv,
+            fold, algorithm=args.alg, seed=cfg.random_seed, metrics=metrics,
+            device=device,
+        )
+        log.info("fold %d: %d mode mixture components", fold, newQ)
+
+
+def cmd_eval(args):
+    from medgp_tpu_torch.evaluation.evals import eval_cohort, summarize
+    from medgp_tpu_torch.parallel.runner import stage_metrics
+
+    cfg = _load_cfg(args.cfg)
+    s = summarize(eval_cohort(
+        cfg.data_dir, cfg.exp_test_dir, args.test_mode, cfg.feature_list,
+        cfg.pans(), metrics=stage_metrics(cfg),
+    ))
+    log.info(
+        "%s: cohort MAE=%.4f CI-coverage=%.2f%%",
+        args.test_mode, s["mae"], s["ci_ratio"],
+    )
+    print(json.dumps(s))
+
+
+def cmd_run(args):
+    """Fused pipeline: train -> kernclust (every fold, from the trained
+    hypers in memory) -> test in both modes -> eval of both modes. Files
+    are still written at every stage boundary. One `run` record in
+    log/metrics.jsonl carries each stage's seconds."""
+    if args.sampler != "none":
+        raise NotImplementedError(
+            f"run --sampler {args.sampler}: the samplers (medgp_tpu/infer/"
+            "{hmc,nuts,vi}.py) are not ported yet (ROADMAP A6)"
+        )
+    from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold_in_memory
+    from medgp_tpu_torch.data.cohort import load_cohort
+    from medgp_tpu_torch.evaluation.evals import eval_cohort, summarize
+    from medgp_tpu_torch.parallel.runner import stage_metrics, test_cohort, train_cohort
+
+    device = _device(args)
+    cfg = _load_cfg(args.cfg)
+    pans = cfg.pans()
+    seconds = {}
+    t0 = time.time()
+    records = load_cohort(cfg.data_dir, pans, cfg.feature_list)
+    tout = train_cohort(cfg, records, n_restarts=args.restarts, device=device)
+    seconds["train"] = time.time() - t0
+    log.info("[run] train done at %.1fs", time.time() - t0)
+
+    # in cohort order, as the file-based `kernclust` reads them, so that the
+    # handoff gives the same GMM rows (and draws) as the files would
+    trained = [p for p in pans if p in tout and tout[p]["flag"]]
+    if not trained:
+        raise RuntimeError(
+            "no successfully trained patients - nothing to cluster "
+            "(check train_flag_* / data quality: >=2 obs per feature)"
+        )
+    hyps = np.stack([tout[p]["theta"] for p in trained])
+    metrics = stage_metrics(cfg)
+    cv = cfg.cv_assign()
+    t1 = time.time()
+    for fold in range(-1, cfg.cv_fold_num):
+        kernel_clustering_fold_in_memory(
+            cfg.spec(), cfg.exp_kernel_dir, trained, hyps, cv, pans, fold,
+            algorithm=args.alg, seed=cfg.random_seed, metrics=metrics,
+            device=device,
+        )
+    seconds["kernclust"] = time.time() - t1
+    log.info("[run] kernclust done at %.1fs", time.time() - t0)
+
+    t1 = time.time()
+    index = {p: i for i, p in enumerate(pans)}
+    folds = np.asarray([cv[index[r.pan]] for r in records])
+    test_cohort(cfg, records, folds=folds, kernclust_alg=args.alg, device=device)
+    seconds["test"] = time.time() - t1
+    log.info("[run] test done at %.1fs", time.time() - t0)
+
+    t1 = time.time()
+    summary = {
+        mode: summarize(eval_cohort(
+            cfg.data_dir, cfg.exp_test_dir, mode, cfg.feature_list, pans,
+            metrics=metrics,
+        ))
+        for mode in TEST_MODES
+    }
+    seconds["eval"] = time.time() - t1
+    metrics.write(
+        "run", device=str(device),
+        **{f"{k}_seconds": v for k, v in seconds.items()},
+        seconds=time.time() - t0,
+    )
+    log.info("[run] done in %.1fs: %s", time.time() - t0, summary)
+    print(json.dumps(summary))
 
 
 def build_parser():
@@ -153,15 +265,24 @@ def build_parser():
     r.add_argument("--max-batch", type=int, default=128)
     r.add_argument(
         "--large-threshold", type=int, default=None,
-        help="n_obs above which a patient needs the row-blocked path, which "
-        "is not ported (default: cfg.large_patient_threshold)",
+        help="n_obs above which an LMC-SM patient needs the row-blocked "
+        "path, which is not ported: refused (default: "
+        "cfg.large_patient_threshold)",
     )
     r.add_argument(
         "--ckpt-dir", default=None,
-        help="per-bucket checkpoints (not ported: refused)",
+        help="per-bucket checkpoint dir: a re-run restores the finished "
+        "buckets (utils/checkpoints.py)",
     )
     r.add_argument("--device", default=None, help=device_help)
     r.set_defaults(func=cmd_train)
+
+    k = sub.add_parser("kernclust", help="population mode kernels per fold")
+    k.add_argument("--cfg", required=True)
+    k.add_argument("--fold", type=int, default=None, help="default: all folds")
+    k.add_argument("--alg", default="gmm")
+    k.add_argument("--device", default=None, help=device_help)
+    k.set_defaults(func=cmd_kernclust)
 
     s = sub.add_parser("test", help="online one-step-ahead imputation")
     s.add_argument("--cfg", required=True)
@@ -169,12 +290,28 @@ def build_parser():
     s.add_argument("--fold", type=int, default=None)
     s.add_argument("--alg", default="gmm")
     s.add_argument(
-        "--mode", default="mean_wo_update",
-        choices=("mean_wo_update", "mean_w_update"),
-        help="test mode (mean_w_update updates the hypers online)",
+        "--mode", default=None, choices=TEST_MODES,
+        help="one test mode (default: both, mean_wo_update then "
+        "mean_w_update, which updates the hypers online)",
     )
     s.add_argument("--device", default=None, help=device_help)
     s.set_defaults(func=cmd_test)
+
+    e = sub.add_parser("eval", help="per-feature MAE / CI coverage / NLL")
+    e.add_argument("--cfg", required=True)
+    e.add_argument("--test-mode", required=True, choices=TEST_MODES)
+    e.set_defaults(func=cmd_eval)
+
+    u = sub.add_parser("run", help="fused train+kernclust+test+eval")
+    u.add_argument("--cfg", required=True)
+    u.add_argument("--alg", default="gmm")
+    u.add_argument("--restarts", type=int, default=None)
+    u.add_argument(
+        "--sampler", choices=("none", "hmc", "nuts", "vi"), default="none",
+        help="posterior sampling before clustering (not ported: only none)",
+    )
+    u.add_argument("--device", default=None, help=device_help)
+    u.set_defaults(func=cmd_run)
     return p
 
 

@@ -5,12 +5,13 @@ Counterpart of ``medgp_tpu/parallel/runner.py`` (`train_cohort`,
 padded bucket of patients runs as one batched `train_one_patient` or
 `online_impute` on one device. The TPU-only parts (pow-2 batch padding to
 bound recompiles, the device mesh, the explicit compile step) have no
-counterpart here; the row-blocked path for large patients and the
-per-bucket checkpoints are not ported yet (ROADMAP A7, A4).
+counterpart here; the row-blocked path for large LMC-SM patients is not
+ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import time
@@ -30,6 +31,7 @@ from medgp_tpu_torch.infer.online import OnlineResult, online_impute, unique_tim
 from medgp_tpu_torch.models.gp import PatientData
 from medgp_tpu_torch.models.params import KernelSpec, LMCSMSpec, theta_from_numpy
 from medgp_tpu_torch.models.priors import PriorSpec, clamp_a_elements, empty_prior
+from medgp_tpu_torch.utils.checkpoints import CohortCheckpointer
 from medgp_tpu_torch.utils.hbm import train_batch_cap
 from medgp_tpu_torch.utils.metrics import MetricsWriter
 
@@ -71,6 +73,48 @@ def batch_data(b: PaddedBatch, device: torch.device) -> PatientData:
 # training
 # --------------------------------------------------------------------------
 
+def bucket_key(pans: Sequence[str]) -> np.ndarray:
+    """A bucket's checkpoint key: the first 8 bytes of the sha256 of its
+    patient ids joined by "|", read as one int64 (the JAX package's key)."""
+    h = hashlib.sha256("|".join(pans).encode()).digest()[:8]
+    return np.frombuffer(h, np.int64)
+
+
+def _train_bucket(cfg, spec, b: PaddedBatch, bidx, inits, device, metrics):
+    """Train one bucket; returns host (theta, init_theta, flags, losses,
+    n_obs, var_flat or None) and writes its `train` metrics record."""
+    t0 = time.perf_counter()
+    res = train_one_patient(
+        spec, batch_data(b, device), inits,
+        prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
+        top_iters=cfg.top_iteration_num,
+        sub_opt_iter=cfg.iteration_num_per_update,
+    )
+    theta = res.theta.double().cpu().numpy()  # waits for the device
+    dt = time.perf_counter() - t0
+    init_theta = res.init_theta.double().cpu().numpy()
+    flags = res.flag.cpu().numpy()
+    nobs = res.n_obs.cpu().numpy()
+    losses = res.loss.double().cpu().numpy()
+    evals = int(res.n_evals.sum())
+    var_flat = (
+        res.var_state.flatten().double().cpu().numpy()
+        if cfg.prior_index == 2 else None
+    )
+    log.info(
+        "trained bucket n_max=%d B=%d on %s in %.2fs (%.2f patients/s, "
+        "%d objective+gradient evaluations)",
+        b.n_max, len(b), device, dt, len(b) / dt, evals,
+    )
+    metrics.write(
+        "train", bucket=bidx, n_max=b.n_max, batch=len(b), devices=1,
+        device=str(device), seconds=dt, patients_per_sec=len(b) / dt,
+        evaluations=evals, evaluations_per_sec=evals / dt, nlml=losses,
+        trained=int(flags.sum()),
+    )
+    return theta, init_theta, flags, losses, nobs, var_flat
+
+
 def train_cohort(
     cfg: ExperimentConfig,
     records: Sequence[PatientRecord],
@@ -92,24 +136,24 @@ def train_cohort(
     the train budget of utils/hbm.py; one `train` record per bucket goes to
     log/metrics.jsonl.
 
-    Not ported yet, and refused: patients above the large-patient
-    threshold (the row-blocked objective, ROADMAP A7) and per-bucket
-    checkpoints (`ckpt_dir`; utils/checkpoints.py, ROADMAP A4)."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            "train_cohort(ckpt_dir=...): per-bucket checkpoints "
-            "(medgp_tpu/utils/checkpoints.py) are not ported yet (ROADMAP A4)"
-        )
+    With `ckpt_dir`, each finished bucket is saved (utils/checkpoints.py)
+    under a key made from its patients; a re-run restores every bucket
+    whose key matches and trains the rest.
+
+    LMC-SM patients above the large-patient threshold (`large_threshold`,
+    default cfg.large_patient_threshold) need the row-blocked objective,
+    which is not ported yet (ROADMAP A7), and are refused; SE and SM
+    patients above it train in ordinary buckets, as in the JAX package."""
+    spec = cfg.spec()
     thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
     large = [r.pan for r in records if r.n_obs > thr]
-    if large:
+    if large and isinstance(spec, LMCSMSpec):
         raise NotImplementedError(
-            f"patients {large[:5]} have more than {thr} observations: the "
-            "row-blocked large-patient path (medgp_tpu/infer/large_train.py) "
-            "is not ported yet (ROADMAP A7)"
+            f"LMC-SM patients {large[:5]} have more than {thr} observations: "
+            "the row-blocked large-patient path "
+            "(medgp_tpu/infer/large_train.py) is not ported yet (ROADMAP A7)"
         )
     device = torch.device(device)
-    spec = cfg.spec()
     S = n_restarts or cfg.random_init_num
     inits = random_inits(cfg.random_seed, spec, cfg.bounds(), S).to(device)
     metrics = stage_metrics(cfg)
@@ -121,36 +165,28 @@ def train_cohort(
         records, max_batch=min(max_batch, train_batch_cap(n_top, device)),
         device=device,
     )
+    ckpt = CohortCheckpointer(ckpt_dir) if ckpt_dir else None
     for bidx, b in enumerate(batches):
-        t0 = time.perf_counter()
-        res = train_one_patient(
-            spec, batch_data(b, device), inits,
-            prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
-            top_iters=cfg.top_iteration_num,
-            sub_opt_iter=cfg.iteration_num_per_update,
-        )
-        theta = res.theta.double().cpu().numpy()  # waits for the device
-        dt = time.perf_counter() - t0
-        init_theta = res.init_theta.double().cpu().numpy()
-        flags = res.flag.cpu().numpy()
-        nobs = res.n_obs.cpu().numpy()
-        losses = res.loss.double().cpu().numpy()
-        evals = int(res.n_evals.sum())
-        var_flat = (
-            res.var_state.flatten().double().cpu().numpy()
-            if cfg.prior_index == 2 else None
-        )
-        log.info(
-            "trained bucket n_max=%d B=%d on %s in %.2fs (%.2f patients/s, "
-            "%d objective+gradient evaluations)",
-            b.n_max, len(b), device, dt, len(b) / dt, evals,
-        )
-        metrics.write(
-            "train", bucket=bidx, n_max=b.n_max, batch=len(b), devices=1,
-            device=str(device), seconds=dt, patients_per_sec=len(b) / dt,
-            evaluations=evals, evaluations_per_sec=evals / dt,
-            trained=int(flags.sum()),
-        )
+        key = bucket_key(b.pans)
+        saved = ckpt.load_bucket(bidx) if ckpt is not None else None
+        if saved is not None and np.array_equal(saved.get("key"), key):
+            log.info(
+                "resumed bucket %d (n_max=%d B=%d) from checkpoint",
+                bidx, b.n_max, len(b),
+            )
+            theta, init_theta = saved["theta"], saved["init_theta"]
+            flags, losses = saved["flag"].astype(bool), saved["loss"]
+            nobs, var_flat = saved["n_obs"], saved.get("var_flat")
+        else:
+            theta, init_theta, flags, losses, nobs, var_flat = _train_bucket(
+                cfg, spec, b, bidx, inits, device, metrics
+            )
+            if ckpt is not None:
+                ckpt.save_bucket(bidx, dict(
+                    key=key, theta=theta, init_theta=init_theta,
+                    flag=flags.astype(np.int8), loss=losses, n_obs=nobs,
+                    var_flat=var_flat,
+                ))
         for i, pan in enumerate(b.pans):
             out[pan] = dict(
                 theta=theta[i], init_theta=init_theta[i], flag=bool(flags[i]),

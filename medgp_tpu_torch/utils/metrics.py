@@ -1,8 +1,10 @@
 """Structured metrics: one JSONL writer per run.
 
 Counterpart of ``medgp_tpu/utils/metrics.py``: every stage appends typed
-scalar records to one metrics.jsonl. The port runs as one process, so every
-record carries process 0, the field the JAX package's readers expect.
+scalar records to one metrics.jsonl; an array becomes its mean, median and
+95th percentile (`{key}_mean`, `_p50`, `_p95`). The port runs as one
+process, so every record carries process 0, the field the JAX package's
+readers expect.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import json
 import os
 import time
 from typing import Any, Dict, Optional
+
+import numpy as np
 
 
 class MetricsWriter:
@@ -23,6 +27,13 @@ class MetricsWriter:
     def write(self, stage: str, **scalars: Any) -> Dict[str, Any]:
         rec = dict(ts=time.time(), run=self.run_id, process=0, stage=stage)
         for k, v in scalars.items():
+            if isinstance(v, (np.ndarray, list, tuple)):
+                a = np.asarray(v, float).ravel()
+                if a.size:
+                    rec[f"{k}_mean"] = float(np.nanmean(a))
+                    rec[f"{k}_p50"] = float(np.nanpercentile(a, 50))
+                    rec[f"{k}_p95"] = float(np.nanpercentile(a, 95))
+                continue
             try:
                 rec[k] = float(v)
             except (TypeError, ValueError):

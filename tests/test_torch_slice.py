@@ -173,7 +173,7 @@ def test_cli_test_writes_what_jax_test_cohort_writes(staged):
     )
     tcli.main([
         "test", "--cfg", os.path.join(cfg_t.exp_cfg_dir, "exp_setup.json"),
-        "--device", "cpu",
+        "--mode", "mean_wo_update", "--device", "cpu",
     ])
     n_pred = _compare_test_outputs(cfg_j, cfg_t, "mean_wo_update")
     assert n_pred > 6 * 30
@@ -203,10 +203,11 @@ def test_cli_refuses_the_update_mode(staged):
     assert _compare_test_outputs(cfg_j, cfg_t, "mean_w_update") > 6 * 30
 
 
-@pytest.mark.parametrize("stage", ["train", "test"])
+@pytest.mark.parametrize("stage", ["train", "test", "kernclust", "run"])
 def test_cli_without_a_card_stops_unless_asked_for_the_cpu(staged, stage):
-    """`train` and `test` run on the CUDA card by default; without one they
-    stop with a message instead of falling back to the CPU."""
+    """`train`, `test`, `kernclust` and `run` run on the CUDA card by
+    default; without one they stop with a message instead of falling back
+    to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     _, cfg_t = staged
