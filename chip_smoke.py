@@ -43,7 +43,21 @@ Phases (any failure raises and the script exits non-zero):
      trained from the JAX package's restart draws, where each test mode's
      MAE must lie within three combined standard errors of the JAX
      package's (JAX_PTINR_MAE);
-  7. print one JSON line with the kernels' numbers, then the result line.
+  7. the posterior samplers on the trained cohort of phase 5: the HMC
+     potential (K1, K3, K4 with K5 inside it, K2) on the n=512 bucket's
+     (patient, chain) rows and one 16-step leapfrog trajectory, kernels
+     against twins; the CLI `hmc` with each sampler (hmc, nuts, vi) at cut
+     budgets (SAMPLER_BUDGET), each through the launch counters, every
+     patient's files checked, NUTS's depth within warmup_max_depth + 1, and
+     a second `hmc` run repeating the draws bitwise; after the `run`
+     phases, `run --sampler hmc` at full width with two folds (the
+     posterior-mean handoff logged for every trained patient, the `run`
+     record's sampler_seconds); the JAX tests' Gaussian targets on the
+     card; and the rates at bench.py's sampler protocol (BENCH: draws/s,
+     min bulk ESS/s, ADVI steps/s, objective batches and host reads per
+     transition);
+  8. print one JSON line with the samplers' numbers, one with the kernels'
+     numbers, then the result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
@@ -52,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -71,8 +86,14 @@ from medgp_tpu_torch.data.synthetic import (
     write_reference_format_cohort,
 )
 from medgp_tpu_torch.evaluation.evals import mae_mean_se
+from medgp_tpu_torch.infer.diagnostics import ess_bulk
+from medgp_tpu_torch.infer.hmc import (
+    _leapfrog, chain_starts, hmc_sample, make_potential, repeat_rows,
+)
 from medgp_tpu_torch.infer.map_train import screen_inits
+from medgp_tpu_torch.infer.nuts import nuts_sample
 from medgp_tpu_torch.infer.online import online_impute, unique_times
+from medgp_tpu_torch.infer.vi import advi_fit
 from medgp_tpu_torch.models.gp import PatientData, objective_and_grad
 from medgp_tpu_torch.models.params import LMCSMSpec, theta_from_numpy
 from medgp_tpu_torch.models.priors import hier_gamma_prior
@@ -144,6 +165,24 @@ JAX_PTINR_MAE = {
                       "SCALE.md §6 (TPU v5e)": (0.5382, 0.0141)},
 }
 MAE_SIGMAS = 3.0  # |MAE_port - MAE_jax| <= 3 combined standard errors
+
+# The samplers' phases: the CLI `hmc` with each sampler, and `run --sampler
+# hmc`, at budgets cut to keep the three `hmc` phases near 3 minutes on the
+# card (the CLI's defaults: 4 chains, 300 warmup, 300 draws, 16 steps).
+SAMPLER_BUDGET = dict(chains=2, warmup=16, samples=16, leapfrog=8, max_depth=6)
+SAMPLER_CLI = [x for k, v in SAMPLER_BUDGET.items()
+               for x in (f"--{k.replace('_', '-')}", str(v))]
+SAMPLER_RUN_CLI = SAMPLER_CLI[:6]  # `run` takes --chains, --warmup, --samples
+# nuts_sample's warmup depth cap; the sampling depth is at most this + 1
+# (the JAX package's rule, ROADMAP §C)
+WARMUP_MAX_DEPTH = 4
+# One leapfrog trajectory, kernels vs the float64 twins: theta relative to
+# its scale.
+THETA_REL = 1e-3
+# bench.py's sampler protocol (bench.py:409-493); VI has none there: 32
+# ADVI steps of 4 draws at the same batch.
+BENCH = dict(batch=32, n=512, warmup=32, hmc_samples=24, leapfrog=16,
+             nuts_samples=12, max_depth=6, vi_steps=32, vi_mc=4)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): fp32
 # outside the tensor cores, and device memory. bound_ms is the larger of the two
@@ -1074,6 +1113,330 @@ def run_accuracy(dev):
     return seconds, counts, stages, got
 
 
+# --------------------------------------------------------------------------
+# the posterior samplers (after `train`, on its trained experiment)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Keep every result of `module.name` made meanwhile (a list)."""
+    own, seen = getattr(module, name), []
+
+    def wrapped(*args, **kwargs):
+        seen.append(own(*args, **kwargs))
+        return seen[-1]
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, own)
+
+
+def sampler_bucket(cfg, dev, chains):
+    """The trained cohort's n=512 bucket as `hmc_cohort` packs it for
+    `chains` chains, with its MAP hypers and the hier-gamma prior."""
+    spec = cfg.spec()
+    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
+    pans, hyps = formats.read_train_kernels(cfg.exp_train_dir, cfg.pans())
+    by_pan = dict(zip(pans, hyps))
+    b = max(pack_patients([r for r in recs if r.pan in by_pan], max_batch=32,
+                          device=dev, footprint_mult=2 * chains), key=lambda x: x.n_max)
+    theta0 = torch.as_tensor(np.stack([by_pan[p] for p in b.pans]).astype(np.float32), device=dev)
+    prior = hier_gamma_prior(spec, beta_lam=cfg.beta_lam, device=dev)
+    return spec, b, runner.batch_data(b, dev), theta0, prior
+
+
+def sampler_potential_and_leapfrog(cfg, dev, chains=4, steps=16, eps=2e-4):
+    """The HMC potential (K1, K3, K4, K2) on the n=512 bucket's (patient,
+    chain) rows, and one leapfrog trajectory of `steps` steps from the same
+    momenta (one generator state; unit mass, `eps` small enough that no
+    row diverges), through the kernels, the float32 twins and the twins in
+    float64. The MAP points of trained patients include ill-conditioned
+    grams, on which the float32 twins' gradient misses the float64 one by
+    up to ~20% (PERF.md §6), so the kernels are held to the float64
+    twins: U within VALUE_REL; dU within GRAD_TOL of each row's scale, or
+    no further off than the float32 twins on that row; theta at the
+    trajectory's end within THETA_REL of each row's scale on every row
+    where the float32 twins' trajectory is (on an ill-conditioned row the
+    trajectory grows float32 rounding, from either path, past THETA_REL at
+    any step size that moves the other rows: those rows are printed). The
+    trajectory, not a transition: an accept draw near its threshold may
+    flip."""
+    spec, b, data, theta0, prior = sampler_bucket(cfg, dev, chains)
+    gmask = prior.grad_mask()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    th = chain_starts(theta0, gen, chains, gmask).reshape(-1, spec.n_hyp)
+    p = torch.randn(th.shape, generator=gen, device=dev)
+    rows = repeat_rows(data, chains)
+    rows64 = PatientData(rows.t.double(), rows.y.double(), rows.meta, rows.mask.double())
+
+    def run(data, th, p):
+        pg = make_potential(spec, data, prior)
+        u, g = pg(th)
+        step = torch.full((th.shape[0],), eps, dtype=th.dtype, device=dev)
+        end = _leapfrog(pg, th, p, g * gmask, u, step, torch.ones_like(th), steps, steps,
+                        gmask.to(th.dtype))[0]
+        return u, g, end
+
+    u, g, end = run(rows, th, p)
+    with twins():
+        ut, gt, end_t = run(rows, th, p)
+        u64, g64, end64 = run(rows64, th.double(), p.double())
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(u64).all()),
+          "sampler potential: a failed evaluation at the MAP starts")
+
+    def u_err(x):
+        return float(((x.double() - u64) / u64).abs().max())
+
+    def row_err(x, ref):  # per row, relative to the row's float64 scale
+        return (x.double() - ref).abs().amax(-1) / ref.abs().amax(-1)
+
+    ek, et = row_err(g, g64), row_err(gt, g64)
+    th_k, th_t = row_err(end, end64), row_err(end_t, end64)
+    print(f"sampler potential n_max={b.n_max} B={len(b)} x {chains} chains = {th.shape[0]} "
+          f"rows, against the float64 twins: U rel err kernels {u_err(u):.3e}, float32 twins "
+          f"{u_err(ut):.3e} (tol {VALUE_REL:g}); dU row-relative err kernels max "
+          f"{float(ek.max()):.3e} median {float(ek.median()):.3e}, float32 twins max "
+          f"{float(et.max()):.3e} median {float(et.median()):.3e} (tol {GRAD_TOL:g} or the "
+          f"twins' own); kernels vs float32 twins U {float(((u - ut) / ut).abs().max()):.3e}, "
+          f"dU {float((g - gt).abs().max() / gt.abs().max()):.3e} of scale; {steps}-step "
+          f"leapfrog (eps {eps:g}) end theta row-relative err kernels max "
+          f"{float(th_k.max()):.3e} median {float(th_k.median()):.3e}, float32 twins max "
+          f"{float(th_t.max()):.3e} (tol {THETA_REL:g}) after moving "
+          f"{float((end64 - th.double()).abs().max()):.3e}")
+    loose = torch.nonzero(th_t > THETA_REL).squeeze(-1).tolist()
+    print(f"leapfrog: rows where the float32 twins' trajectory leaves {THETA_REL:g} of the "
+          f"float64 one (patient, chain; kernels' err, twins' err, kernels' dU err, twins'): "
+          f"{[(i // chains, i % chains, float(th_k[i]), float(th_t[i]), float(ek[i]), float(et[i])) for i in loose]}")
+    check(u_err(u) <= VALUE_REL, f"sampler potential: U rel err {u_err(u)} > {VALUE_REL}")
+    worst = int(torch.argmax(ek - torch.clamp(et, min=GRAD_TOL)))
+    check(bool((ek <= torch.clamp(et, min=GRAD_TOL)).all()),
+          f"sampler potential: row {worst} dU err {float(ek[worst])} above {GRAD_TOL} and "
+          f"the float32 twins' {float(et[worst])}")
+    held = th_t <= THETA_REL
+    check(bool((th_k[held] <= THETA_REL).all()),
+          f"leapfrog: theta err {float(th_k[held].max())} > {THETA_REL} on a row the float32 "
+          f"twins hold")
+    return th.shape[0]
+
+
+def check_sampler_outputs(cfg, sampler):
+    """Both files of every trained patient, finite; accept rates in (0, 1],
+    step sizes finite and > 0 and the diagnostics' keys (HMC, NUTS), or a
+    finite ELBO (VI). Returns {pan: samples}."""
+    prefix = "vi" if sampler == "vi" else "hmc"
+    spec = cfg.spec()
+    pans, _ = formats.read_train_kernels(cfg.exp_train_dir, cfg.pans())
+    got = {}
+    for pan in pans:
+        mean_path = os.path.join(cfg.exp_train_dir, f"train_{prefix}_mean_{pan}.bin")
+        npz_path = os.path.join(cfg.exp_train_dir, f"train_{prefix}_samples_{pan}.npz")
+        check(os.path.exists(mean_path) and os.path.exists(npz_path),
+              f"{pan}: missing {sampler} outputs")
+        mean = formats.read_double_bin(mean_path)
+        check(mean.shape == (spec.n_hyp,) and bool(np.all(np.isfinite(mean))),
+              f"{pan}: {sampler} posterior mean")
+        with np.load(npz_path) as z:
+            check(bool(np.all(np.isfinite(z["samples"]))), f"{pan}: {sampler} samples not finite")
+            if sampler == "vi":
+                check(bool(np.isfinite(z["elbo"])), f"{pan}: ELBO not finite")
+            else:
+                acc, eps = z["accept_rate"], z["step_size"]
+                check(bool(np.all((acc > 0) & (acc <= 1))), f"{pan}: accept rates {acc}")
+                check(bool(np.all(np.isfinite(eps) & (eps > 0))), f"{pan}: step sizes {eps}")
+                for k in ("ess_bulk_min", "rhat_max", "ess_min_A", "rhat_max_kappa"):
+                    check(k in z.files, f"{pan}: no {k} in the {sampler} diagnostics")
+            got[pan] = z["samples"]
+    return got
+
+
+def run_samplers(cfg_path, cfg, dev):
+    """The CLI `hmc` with each sampler at SAMPLER_CLI's budgets, each
+    through run_path (K1-K4 must launch; K5's kernels run inside each K4
+    launch), every output checked; NUTS's depth within WARMUP_MAX_DEPTH +
+    1; a second `hmc --sampler hmc` repeats the draws bitwise. Returns
+    {sampler: (seconds, counts, extra)}."""
+    needs = ("gram_lmcsm", "gram_lmcsm_bwd", "chol_solve", "qmat")
+    base = ["hmc", "--cfg", cfg_path, "--device", str(dev), *SAMPLER_CLI]
+    out = {}
+    for sampler in ("hmc", "nuts", "vi"):
+        with recorded(runner, f"{sampler}_patient") as results:
+            seconds, counts = run_path(f"hmc --sampler {sampler}", base + ["--sampler", sampler], needs)
+        samples = check_sampler_outputs(cfg, sampler)
+        extra = dict(patients=len(samples), buckets=len(results))
+        if sampler == "nuts":
+            depth = max(int(r.tree_depth.max()) for r in results)
+            transitions = len(results) * (SAMPLER_BUDGET["warmup"] + SAMPLER_BUDGET["samples"])
+            reads = sum(r.host_reads for r in results)
+            extra.update(max_depth=depth, host_reads=reads,
+                         host_reads_per_draw=reads / transitions)
+            check(depth <= WARMUP_MAX_DEPTH + 1,
+                  f"NUTS sampled at depth {depth} > warmup_max_depth + 1")
+        if sampler != "vi":
+            rates = np.concatenate([r.accept_rate.cpu().numpy().ravel() for r in results])
+            extra.update(accept_rate_mean=float(rates.mean()))
+        print(f"hmc --sampler {sampler}: {len(samples)} patients in {len(results)} buckets, "
+              f"{json.dumps(extra)}")
+        out[sampler] = (seconds, counts, extra)
+        if sampler == "hmc":
+            cli(base + ["--sampler", "hmc"])
+            again = check_sampler_outputs(cfg, "hmc")
+            for pan, s in samples.items():
+                check(np.array_equal(s, again[pan]), f"{pan}: a second hmc run differs")
+            print(f"hmc --sampler hmc: a second run repeats all {len(again)} patients' "
+                  f"draws bitwise")
+    return out
+
+
+def run_with_sampler(dev):
+    """`run --sampler hmc` at the canonical width on the staged 64-patient
+    cohort, two folds, at SAMPLER_BUDGET's chains, warmup and draws: the
+    log shows the posterior-mean handoff for every trained patient, the
+    `run` record has sampler_seconds, and both test modes' outputs are
+    complete and finite."""
+    cfg_path = generate_experiment(
+        "runs", os.path.join(ROOT, "examples", "feature_all.json"), TRAIN_OPT,
+        Q=Q, R=R, folds=2)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logging.getLogger("medgp_tpu_torch").addHandler(handler)
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            seconds, counts = run_path(
+                "run --sampler hmc", ["run", "--cfg", cfg_path, "--device", str(dev),
+                                      "--sampler", "hmc", *SAMPLER_RUN_CLI], tuple(KERNELS))
+    finally:
+        logging.getLogger("medgp_tpu_torch").removeHandler(handler)
+    trained = check_train_outputs(cfg, recs)
+    handoff = [x for x in lines if "posterior means for" in x]
+    print(f"run --sampler hmc: {handoff}")
+    check(handoff and handoff[-1].split("posterior means for ")[1].startswith(
+        f"{trained}/{trained} patients"), f"run --sampler hmc: handoff {handoff}")
+    check_sampler_outputs(cfg, "hmc")
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+    stages = run_stage_seconds(cfg)
+    check(stages.get("sampler", 0) > 0, f"run record without sampler_seconds: {stages}")
+    summary = json.loads([x for x in out.getvalue().splitlines() if x.startswith("{")][-1])
+    print(f"run --sampler hmc: stage seconds {json.dumps(stages)}; summary {json.dumps(summary)}")
+    return seconds, counts, stages
+
+
+def gaussian_moments(dev):
+    """The JAX tests' Gaussian targets on the card (tests/test_hmc.py:21-39,
+    tests/test_nuts.py:79-96, tests/test_vi.py:15-38; VI over 16
+    independent fits, as tests/test_torch_vi.py holds it)."""
+    mu = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    sigma = torch.tensor([0.5, 2.0, 1.0], device=dev)
+
+    def pg(x):
+        return torch.sum(0.5 * ((x - mu) / sigma) ** 2, -1), (x - mu) / sigma**2
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    got = {}
+    for name, res in (
+        ("hmc", hmc_sample(pg, torch.zeros(1, 3, device=dev), gen(), num_warmup=500,
+                           num_samples=2000, num_leapfrog=16, init_step_size=0.1)),
+        ("nuts", nuts_sample(pg, torch.zeros(1, 3, device=dev), gen(), num_warmup=400,
+                             num_samples=1500, max_depth=6, init_step_size=0.1)),
+    ):
+        s = res.samples[0].cpu().numpy()
+        m_err = float(np.abs(s.mean(0) - mu.cpu().numpy()).max())
+        sd_err = float(np.abs(s.std(0) / sigma.cpu().numpy() - 1).max())
+        got[name] = dict(accept_rate=float(res.accept_rate[0]), mean_err=m_err, std_rel_err=sd_err)
+        check(float(res.accept_rate[0]) > 0.6 and int(res.divergences[0]) == 0,
+              f"{name} Gaussian: accept {float(res.accept_rate[0])}, divergences")
+        check(m_err <= 0.25 and sd_err <= 0.35, f"{name} Gaussian moments: {got[name]}")
+    res = advi_fit(pg, torch.zeros(16, 3, device=dev), gen(), num_steps=1500, num_mc=8,
+                   learning_rate=0.05)
+    m_err = float((res.mean.mean(0) - mu).abs().max())
+    sd_err = float((res.log_std.exp().mean(0) / sigma - 1).abs().max())
+    got["vi"] = dict(mean_err=m_err, std_rel_err=sd_err)
+    check(bool(res.converged.all()) and m_err <= 0.1 and sd_err <= 0.2,
+          f"vi Gaussian: {got['vi']}")
+    print(f"Gaussian targets on {torch.cuda.get_device_name(0)}: {json.dumps(got)} "
+          f"(tol: mean 0.25 / 0.25 / 0.1, std 0.35 / 0.35 / 0.2 relative)")
+    return got
+
+
+def sampler_rates(dev):
+    """bench.py's sampler protocol (bench.py:409-493) through the kernels:
+    B=32 random patients at n=512 (its data, seed 2), the canonical width,
+    the hier-gamma prior, one chain per patient, each sampler run once to
+    warm up and once timed. HMC: 32 warmup and 24 draws of 16 leapfrog
+    steps; NUTS: 32 warmup, 12 draws, max_depth 6; both give draws/s
+    (warmup inside the timed call, not counted) and the min-over-hypers
+    bulk ESS summed over patients per second. VI (no bench protocol): 32
+    ADVI steps of 4 draws, steps/s. Objective batches (K2 launches) and,
+    for NUTS, host reads per transition are counted in the timed run."""
+    spec = LMCSMSpec(Q, D, R)
+    rng = np.random.default_rng(2)
+    B, n = BENCH["batch"], BENCH["n"]
+    t = np.sort(rng.uniform(0, 168.0, size=(B, n)), 1).astype(np.float32)
+    meta = rng.integers(0, D, size=(B, n)).astype(np.int32)
+    y = rng.normal(size=(B, n)).astype(np.float32)
+    th = (rng.normal(size=(B, spec.n_hyp)) * 0.1).astype(np.float32)
+    th[:, :D] = np.log(0.3)
+    data = PatientData(*(torch.as_tensor(x, device=dev) for x in (t, y, meta, np.ones_like(t))))
+    prior = hier_gamma_prior(spec, beta_lam=0.01, device=dev)
+    gmask = prior.grad_mask()
+    theta0 = torch.as_tensor(th, device=dev)
+    warm = BENCH["warmup"]
+    runs = {
+        "hmc": (BENCH["hmc_samples"], lambda pg, g: hmc_sample(
+            pg, theta0, g, num_warmup=warm, num_samples=BENCH["hmc_samples"],
+            num_leapfrog=BENCH["leapfrog"], grad_mask=gmask)),
+        "nuts": (BENCH["nuts_samples"], lambda pg, g: nuts_sample(
+            pg, theta0, g, num_warmup=warm, num_samples=BENCH["nuts_samples"],
+            max_depth=BENCH["max_depth"], grad_mask=gmask)),
+    }
+    out = {}
+    for name, (draws, fn) in runs.items():
+        pg = make_potential(spec, data, prior)
+        for _ in range(2):  # a warm-up run, then the timed one
+            gen = torch.Generator(device=dev).manual_seed(0)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(pg, gen)
+            samples = res.samples.cpu().numpy()
+            dt = time.perf_counter() - t0
+        batches = read_launches()["gram_lmcsm_bwd"]
+        ess = sum(float(np.min(ess_bulk(samples[b][None]))) for b in range(B))
+        out[name] = dict(seconds=dt, draws_per_s=B * draws / dt, min_ess_per_s=ess / dt,
+                         accept_rate=float(res.accept_rate.mean()),
+                         objective_batches=batches,
+                         batches_per_transition=batches / (warm + draws))
+        if name == "nuts":
+            out[name].update(host_reads=res.host_reads,
+                             host_reads_per_transition=res.host_reads / (warm + draws),
+                             mean_depth=float(res.tree_depth.float().mean()))
+        check(np.isfinite(samples).all(), f"bench {name}: non-finite draws")
+    pg = make_potential(spec, repeat_rows(data, BENCH["vi_mc"]), prior)
+    for _ in range(2):  # a warm-up run, then the timed one
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = advi_fit(pg, theta0, torch.Generator(device=dev).manual_seed(0),
+                       num_steps=BENCH["vi_steps"], num_mc=BENCH["vi_mc"], grad_mask=gmask)
+        res.mean.cpu()
+        dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(res.mean).all()), "bench vi: non-finite mean")
+    out["vi"] = dict(seconds=dt, steps_per_s=BENCH["vi_steps"] / dt,
+                     objective_batches=read_launches()["gram_lmcsm_bwd"])
+    print(f"sampler rates, bench.py's protocol (B={B}, n={n}, Q={Q} D={D} R={R}) on "
+          f"{torch.cuda.get_device_name(0)}: {json.dumps(out)}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1235,14 +1598,28 @@ def main():
     recheck_update_bucket(cfg, recs, theta, dev)
     phase_done("test mean_w_update")
 
+    sampler_rows = sampler_potential_and_leapfrog(cfg, dev)
+    torch.cuda.empty_cache()
+    phase_done("sampler potential and leapfrog")
+    samplers = run_samplers(cfg_path, cfg, dev)
+    phase_done("hmc (hmc, nuts, vi)")
+
     run_s, run_c, run_stages = run_full_width(dev)
     phase_done("run (full width)")
     acc_s, acc_c, acc_stages, acc_mae = run_accuracy(dev)
     phase_done("run (PT/INR accuracy)")
+    rs_s, rs_c, rs_stages = run_with_sampler(dev)
+    phase_done("run --sampler hmc")
+    gauss = gaussian_moments(dev)
+    phase_done("Gaussian targets")
+    bench_rates = sampler_rates(dev)
+    phase_done("sampler rates")
 
     by_path = {
         name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
-               "run": run_c[name], "run_ptinr": acc_c[name]}
+               "run": run_c[name], "run_ptinr": acc_c[name],
+               **{f"hmc_{k}": v[1][name] for k, v in samplers.items()},
+               "run_sampler": rs_c[name]}
         for name in KERNELS
     }
     src = "medgp_tpu_torch/csrc/"
@@ -1273,13 +1650,22 @@ def main():
              tri_inv_ms=k4[(128, 512)]["tri_inv_ms"], syrk_ms=k4[(128, 512)]["syrk_ms"],
              more_shapes={f"B={b} n={n}": r for (b, n), r in k4.items()}),
         dict(row("tri_inv", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:365",
-                 tri_shapes["B=1024 n=512"], "B=1024 n=512"), more_shapes=tri_shapes),
+                 tri_shapes["B=1024 n=512"], "B=1024 n=512"), more_shapes=tri_shapes,
+             # the CLI `hmc` paths run K5's kernels inside each K4 launch only
+             inside_qmat_by_path={k: v for k, v in by_path["qmat"].items()
+                                  if k.startswith("hmc_")}),
     ]
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}; "
           f"objective+gradient evals/s at B=128 n=512: {rates['kernels']:.1f}")
     print(f"run stages (s): full width {json.dumps(run_stages)} in {run_s:.2f}; "
           f"PT/INR {json.dumps(acc_stages)} in {acc_s:.2f}; PT/INR MAE (mean, SE, N) "
           f"{json.dumps(acc_mae)}")
+    print(json.dumps({"samplers": {
+        "potential_rows": sampler_rows,
+        "hmc_phases": {k: dict(seconds=v[0], **v[2]) for k, v in samplers.items()},
+        "run_sampler": dict(seconds=rs_s, stages=rs_stages),
+        "gaussian": gauss, "bench_protocol": bench_rates,
+    }}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

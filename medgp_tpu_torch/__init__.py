@@ -10,11 +10,13 @@ SCG, or SCG alone; per-bucket checkpoints; CLI ``train``), kernel
 clustering (GMM + BIC and the KDE mode kernels; CLI ``kernclust``), the
 test stage in both modes (online one-step-ahead imputation with a given
 mode kernel, ``mean_wo_update`` and ``mean_w_update``), evaluation (CLI
-``eval``) and the fused ``run``, with all five TPU kernels written by
-hand in CUDA (``csrc/``): the LMC-SM gram (K1) and its backward (K2), the
-fused Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
-triangular inverse (K5). Not yet: the samplers, the row-blocked path for
-large LMC-SM patients, several devices.
+``eval``), the posterior samplers (HMC, NUTS and ADVI over the GP hypers,
+with their diagnostics; CLI ``hmc``) and the fused ``run`` (with
+``--sampler``), with all five TPU kernels written by hand in CUDA
+(``csrc/``): the LMC-SM gram (K1) and its backward (K2), the fused
+Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
+triangular inverse (K5). Not yet: the row-blocked path for large LMC-SM
+patients, several devices.
 """
 
 import torch

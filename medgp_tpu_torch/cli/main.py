@@ -6,15 +6,16 @@ fused.
     python -m medgp_tpu_torch.cli.main kernclust --cfg ... [--fold -1] --alg gmm
     python -m medgp_tpu_torch.cli.main test      --cfg ... --alg gmm [--mode M]
     python -m medgp_tpu_torch.cli.main eval      --cfg ... --test-mode mean_w_update
-    python -m medgp_tpu_torch.cli.main run       --cfg ...  # all stages, one process
+    python -m medgp_tpu_torch.cli.main hmc       --cfg ... [--sampler hmc|nuts|vi]
+    python -m medgp_tpu_torch.cli.main run       --cfg ... [--sampler S]  # one process
 
 Counterpart of the same subcommands of ``medgp_tpu/cli/main.py``; all
 read and write the reference-format artifacts, so either package's output
-drives the other's next stage. `train`, `kernclust`, `test` and `run` run
-on the CUDA card; without one they stop with a message unless `--device
-cpu` asks for the CPU (the kernels' plain twins). `eval` is host numpy.
-`test` runs both test modes unless `--mode` picks one. Not ported yet: the
-samplers (`hmc`, `run --sampler`) and several devices.
+drives the other's next stage. `train`, `kernclust`, `test`, `hmc` and
+`run` run on the CUDA card; without one they stop with a message unless
+`--device cpu` asks for the CPU (the kernels' plain twins). `eval` is host
+numpy. `test` runs both test modes unless `--mode` picks one. Not ported
+yet: the row-blocked path for large LMC-SM patients and several devices.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from medgp_tpu_torch.parallel.runner import TEST_MODES
+from medgp_tpu_torch.parallel.runner import SAMPLERS, TEST_MODES
 
 log = logging.getLogger("medgp_tpu_torch")
 
@@ -165,20 +166,41 @@ def cmd_eval(args):
     print(json.dumps(s))
 
 
+def cmd_hmc(args):
+    from medgp_tpu_torch.data.cohort import load_cohort
+    from medgp_tpu_torch.parallel.runner import hmc_cohort
+
+    device = _device(args)
+    cfg = _load_cfg(args.cfg)
+    records = load_cohort(
+        cfg.data_dir, [args.pan] if args.pan else cfg.pans(), cfg.feature_list
+    )
+    t0 = time.time()
+    out = hmc_cohort(
+        cfg, records, num_chains=args.chains, num_warmup=args.warmup,
+        num_samples=args.samples, num_leapfrog=args.leapfrog,
+        init_step_size=args.step_size, sampler=args.sampler,
+        max_depth=args.max_depth, device=device,
+    )
+    log.info(
+        "sampled %d/%d patients on %s in %.1fs",
+        len(out), len(records), device, time.time() - t0,
+    )
+
+
 def cmd_run(args):
-    """Fused pipeline: train -> kernclust (every fold, from the trained
-    hypers in memory) -> test in both modes -> eval of both modes. Files
-    are still written at every stage boundary. One `run` record in
-    log/metrics.jsonl carries each stage's seconds."""
-    if args.sampler != "none":
-        raise NotImplementedError(
-            f"run --sampler {args.sampler}: the samplers (medgp_tpu/infer/"
-            "{hmc,nuts,vi}.py) are not ported yet (ROADMAP A6)"
-        )
+    """Fused pipeline: train [-> sampler] -> kernclust (every fold, from the
+    hypers in memory) -> test in both modes -> eval of both modes. With
+    `--sampler`, posterior inference runs after training and clustering
+    takes each sampled patient's posterior-mean hypers in place of its MAP
+    point. Files are still written at every stage boundary. One `run`
+    record in log/metrics.jsonl carries each stage's seconds."""
     from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold_in_memory
     from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.evaluation.evals import eval_cohort, summarize
-    from medgp_tpu_torch.parallel.runner import stage_metrics, test_cohort, train_cohort
+    from medgp_tpu_torch.parallel.runner import (
+        hmc_cohort, stage_metrics, test_cohort, train_cohort,
+    )
 
     device = _device(args)
     cfg = _load_cfg(args.cfg)
@@ -199,6 +221,25 @@ def cmd_run(args):
             "(check train_flag_* / data quality: >=2 obs per feature)"
         )
     hyps = np.stack([tout[p]["theta"] for p in trained])
+    if args.sampler != "none":
+        t1 = time.time()
+        trained_set = set(trained)
+        sout = hmc_cohort(
+            cfg, [r for r in records if r.pan in trained_set],
+            num_chains=args.chains, num_warmup=args.warmup,
+            num_samples=args.samples, sampler=args.sampler, device=device,
+        )
+        # clustering takes the posterior mean in place of the MAP point
+        n_post = 0
+        for i, p in enumerate(trained):
+            if "post_mean" in sout.get(p, {}):
+                hyps[i] = sout[p]["post_mean"]
+                n_post += 1
+        seconds["sampler"] = time.time() - t1
+        log.info(
+            "[run] %s posterior means for %d/%d patients at %.1fs",
+            args.sampler, n_post, len(trained), time.time() - t0,
+        )
     metrics = stage_metrics(cfg)
     cv = cfg.cv_assign()
     t1 = time.time()
@@ -302,14 +343,41 @@ def build_parser():
     e.add_argument("--test-mode", required=True, choices=TEST_MODES)
     e.set_defaults(func=cmd_eval)
 
-    u = sub.add_parser("run", help="fused train+kernclust+test+eval")
+    h = sub.add_parser(
+        "hmc", help="posterior sampling over trained hypers (post-MAP)"
+    )
+    h.add_argument("--cfg", required=True)
+    h.add_argument("--pan", default=None, help="single patient id")
+    h.add_argument("--chains", type=int, default=4)
+    h.add_argument("--warmup", type=int, default=300)
+    h.add_argument("--samples", type=int, default=300)
+    h.add_argument("--leapfrog", type=int, default=16)
+    h.add_argument(
+        "--sampler", choices=SAMPLERS, default="hmc",
+        help="hmc = jittered fixed trajectories; vi = mean-field ADVI "
+        "(--warmup steps of ELBO ascent, --samples draws); nuts = adaptive "
+        "trajectory lengths (iterative tree)",
+    )
+    h.add_argument(
+        "--max-depth", type=int, default=6,
+        help="NUTS tree depth bound (<= 2^depth - 1 gradient evals/draw)",
+    )
+    h.add_argument("--step-size", type=float, default=0.005)
+    h.add_argument("--device", default=None, help=device_help)
+    h.set_defaults(func=cmd_hmc)
+
+    u = sub.add_parser("run", help="fused train[+sampler]+kernclust+test+eval")
     u.add_argument("--cfg", required=True)
     u.add_argument("--alg", default="gmm")
     u.add_argument("--restarts", type=int, default=None)
     u.add_argument(
-        "--sampler", choices=("none", "hmc", "nuts", "vi"), default="none",
-        help="posterior sampling before clustering (not ported: only none)",
+        "--sampler", choices=("none",) + SAMPLERS, default="none",
+        help="run posterior inference after MAP and feed posterior-mean "
+        "hypers into clustering instead of the MAP point",
     )
+    u.add_argument("--chains", type=int, default=4)
+    u.add_argument("--warmup", type=int, default=200)
+    u.add_argument("--samples", type=int, default=200)
     u.add_argument("--device", default=None, help=device_help)
     u.set_defaults(func=cmd_run)
     return p

@@ -80,12 +80,15 @@ def pack_patients(
     records: Sequence[PatientRecord],
     max_batch: int | None = None,
     device: torch.device | str = "cpu",
+    footprint_mult: int = 1,
 ) -> List[PaddedBatch]:
     """Group patients into padded batches by bucketed length.
 
     Patients keep their identity (pans list); padding entries have mask 0,
     meta 0, t 0, y 0. Each bucket's batch is capped by `max_batch` and by
-    the memory share its grams may take on `device`.
+    the memory share its grams may take on `device`, divided by
+    `footprint_mult`, the number of (n, n) grams a patient holds at once
+    (the samplers: two per chain; medgp_tpu/data/cohort.py:127-142).
     """
     if not records:
         return []
@@ -100,7 +103,7 @@ def pack_patients(
     batches = []
     for n_max in sorted(buckets):
         group = buckets[n_max]
-        cap = bucket_cap(n_max, device)
+        cap = max(1, bucket_cap(n_max, device) // max(footprint_mult, 1))
         eff = cap if max_batch is None else min(max_batch, cap)
         for s in range(0, len(group), eff):
             chunk = group[s : s + eff]

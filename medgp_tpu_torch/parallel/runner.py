@@ -1,12 +1,12 @@
 """Cohort-level train and test stages over padded buckets.
 
 Counterpart of ``medgp_tpu/parallel/runner.py`` (`train_cohort`,
-`test_cohort`, `obs_output_order`, `stage_metrics`, `_test_prior`). Each
-padded bucket of patients runs as one batched `train_one_patient` or
-`online_impute` on one device. The TPU-only parts (pow-2 batch padding to
-bound recompiles, the device mesh, the explicit compile step) have no
-counterpart here; the row-blocked path for large LMC-SM patients is not
-ported yet (ROADMAP A7).
+`test_cohort`, `hmc_cohort`, `obs_output_order`, `stage_metrics`,
+`_test_prior`). Each padded bucket of patients runs as one batched
+`train_one_patient`, `online_impute` or sampler call on one device. The
+TPU-only parts (pow-2 batch padding to bound recompiles, the device mesh,
+the explicit compile step) have no counterpart here; the row-blocked path
+for large LMC-SM patients is not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -26,11 +26,19 @@ from medgp_tpu_torch.data.cohort import (
     PaddedBatch, PatientRecord, bucket_edges, pack_patients,
 )
 from medgp_tpu_torch.data.inits import random_inits
+from medgp_tpu_torch.infer.diagnostics import (
+    invariant_posterior_mean, summarize_diagnostics,
+)
+from medgp_tpu_torch.infer.hmc import hmc_patient
 from medgp_tpu_torch.infer.map_train import train_one_patient
+from medgp_tpu_torch.infer.nuts import nuts_patient
 from medgp_tpu_torch.infer.online import OnlineResult, online_impute, unique_times
+from medgp_tpu_torch.infer.vi import vi_patient
 from medgp_tpu_torch.models.gp import PatientData
 from medgp_tpu_torch.models.params import KernelSpec, LMCSMSpec, theta_from_numpy
-from medgp_tpu_torch.models.priors import PriorSpec, clamp_a_elements, empty_prior
+from medgp_tpu_torch.models.priors import (
+    PriorSpec, clamp_a_elements, empty_prior, hier_gamma_prior,
+)
 from medgp_tpu_torch.utils.checkpoints import CohortCheckpointer
 from medgp_tpu_torch.utils.hbm import train_batch_cap
 from medgp_tpu_torch.utils.metrics import MetricsWriter
@@ -198,6 +206,174 @@ def train_cohort(
                     cfg.exp_train_dir, pan, theta[i], init_theta[i],
                     None if var_flat is None else var_flat[i],
                     bool(flags[i]), int(nobs[i]),
+                )
+    return out
+
+
+# --------------------------------------------------------------------------
+# HMC/NUTS/VI posterior sampling
+# --------------------------------------------------------------------------
+
+SAMPLERS = ("hmc", "nuts", "vi")
+
+
+def hmc_cohort(
+    cfg: ExperimentConfig,
+    records: Sequence[PatientRecord],
+    num_chains: int = 4,
+    num_warmup: int = 300,
+    num_samples: int = 300,
+    num_leapfrog: int = 16,
+    init_step_size: float = 0.005,
+    write: bool = True,
+    seed: int = 0,
+    sampler: str = "hmc",
+    max_depth: int = 6,
+    max_batch: int = 32,
+    large_threshold: Optional[int] = None,
+    device: torch.device | str = "cuda",
+) -> Dict[str, dict]:
+    """Posterior inference for every trained patient, started at its MAP
+    hypers (train_hyp_*.bin), on one device (medgp_tpu/parallel/runner.py:
+    394-635). `sampler` is "hmc" (jittered trajectories, `num_leapfrog`),
+    "nuts" (adaptive trajectories, `max_depth`) or "vi" (mean-field ADVI,
+    one chain: `num_warmup` optimization steps, `num_samples` draws from
+    the fitted q). The hier-gamma prior applies to LMC-SM experiments with
+    prior_index 2, else none.
+
+    Each bucket runs all chains of all its patients as one batch of rows,
+    its size capped by `max_batch` and by the gram budget divided by two
+    grams per chain (`pack_patients(footprint_mult=...)`). One `{sampler}`
+    record per bucket goes to log/metrics.jsonl, and one `{sampler}_diag`
+    record (min bulk ESS, max split-R-hat) per HMC or NUTS patient.
+    Patients above the large-patient threshold are skipped (a
+    `sampler_skip` record; out[pan] = {"flag": False, "reason":
+    "large_patient"}) and keep their MAP hypers.
+
+    Writes train_{hmc|vi}_mean_{pan}.bin (the posterior mean: the
+    invariant mean of the draws for HMC and NUTS, the variational mean for
+    VI) and train_{hmc|vi}_samples_{pan}.npz (chains x draws x H plus the
+    diagnostics) next to the train files; returns {pan: dict(samples,
+    post_mean, **diagnostics)}."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r} (use 'hmc', 'nuts' or 'vi')")
+    device = torch.device(device)
+    spec = cfg.spec()
+    prior = (
+        hier_gamma_prior(spec, beta_lam=cfg.beta_lam, device=device)
+        if cfg.prior_index == 2 and isinstance(spec, LMCSMSpec)
+        else None
+    )
+    pans, hyps = formats.read_train_kernels(cfg.exp_train_dir, [r.pan for r in records])
+    by_pan = dict(zip(pans, hyps))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    metrics = stage_metrics(cfg)
+
+    thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
+    skipped = [r.pan for r in records if r.n_obs > thr]
+    if skipped:
+        log.warning(
+            "%s: skipping %d patient(s) above large-patient threshold "
+            "n_obs>%d (%s): bucketed posterior sampling would build an "
+            "(n,n) gram per chain; these patients keep their MAP hypers",
+            sampler, len(skipped), thr, ", ".join(skipped[:5]),
+        )
+        metrics.write(
+            "sampler_skip", sampler=sampler, reason="large_patient",
+            threshold=thr, pans=",".join(skipped), n_skipped=len(skipped),
+        )
+    out: Dict[str, dict] = {
+        pan: {"flag": False, "reason": "large_patient"} for pan in skipped
+    }
+    trained = [r for r in records if r.pan in by_pan and 0 < r.n_obs <= thr]
+    chains = 1 if sampler == "vi" else num_chains
+    batches = pack_patients(
+        trained, max_batch=max_batch, device=device, footprint_mult=2 * chains,
+    )
+    prefix = "vi" if sampler == "vi" else "hmc"
+    for b in batches:
+        B = len(b)
+        theta0 = torch.as_tensor(
+            np.stack([by_pan[p] for p in b.pans]).astype(np.float32), device=device
+        )
+        data = batch_data(b, device)
+        t0 = time.perf_counter()
+        if sampler == "vi":
+            res = vi_patient(
+                spec, data, theta0, gen, prior=prior,
+                num_steps=num_warmup, num_samples=num_samples,
+            )
+        elif sampler == "nuts":
+            res = nuts_patient(
+                spec, data, theta0, gen, prior=prior, num_chains=num_chains,
+                num_warmup=num_warmup, num_samples=num_samples,
+                init_step_size=init_step_size, max_depth=max_depth,
+            )
+        else:
+            res = hmc_patient(
+                spec, data, theta0, gen, prior=prior, num_chains=num_chains,
+                num_warmup=num_warmup, num_samples=num_samples,
+                init_step_size=init_step_size, num_leapfrog=num_leapfrog,
+            )
+        samples_all = res.samples.cpu().numpy()  # waits for the device
+        dt = time.perf_counter() - t0
+        log.info(
+            "%s bucket B=%d n_max=%d on %s: %d chains x %d samples/patient in "
+            "%.1fs (%.1f samples/s)",
+            sampler, B, b.n_max, device, chains, num_samples, dt,
+            B * chains * num_samples / dt,
+        )
+        if sampler == "vi":
+            samples_all = samples_all[:, None]  # (B, 1, S, H)
+            elbo = res.elbo.cpu().numpy()
+            converged = res.converged.cpu().numpy()
+            log_std = res.log_std.cpu().numpy()
+            diag_scalars = dict(elbo=elbo)
+            diags_all = [
+                dict(elbo=elbo[i], converged=converged[i], log_std=log_std[i])
+                for i in range(B)
+            ]
+            # the variational mean is the posterior mean, exactly
+            means_all = res.mean.cpu().numpy()
+        else:
+            acc = res.accept_rate.cpu().numpy()
+            eps = res.step_size.cpu().numpy()
+            divs = res.divergences.cpu().numpy()
+            diag_scalars = dict(accept_rate=acc.ravel(), divergences=int(divs.sum()))
+            diags_all = []
+            for i in range(B):
+                # rank-normalized split-R-hat and bulk ESS per hyper block
+                # (Vehtari et al. 2021)
+                d = dict(accept_rate=acc[i], step_size=eps[i], divergences=divs[i])
+                d.update(summarize_diagnostics(samples_all[i], spec))
+                diags_all.append(d)
+            # the mean in the identified parametrization: the raw
+            # coordinate mean is degenerate under A's sign symmetry and
+            # cross-chain label switching
+            means_all = np.stack(
+                [invariant_posterior_mean(spec, samples_all[i]) for i in range(B)]
+            ).astype(samples_all.dtype)
+        metrics.write(
+            sampler, n_max=b.n_max, batch=B, devices=1, device=str(device),
+            seconds=dt, samples_per_sec=B * chains * num_samples / dt,
+            **diag_scalars,
+        )
+        if sampler != "vi":
+            for pan, d in zip(b.pans, diags_all):
+                metrics.write(
+                    f"{sampler}_diag", pan=pan,
+                    ess_bulk_min=d["ess_bulk_min"], rhat_max=d["rhat_max"],
+                )
+        for i, pan in enumerate(b.pans):
+            out[pan] = dict(samples=samples_all[i], post_mean=means_all[i], **diags_all[i])
+            if write:
+                formats.write_double_bin(
+                    os.path.join(cfg.exp_train_dir, f"train_{prefix}_mean_{pan}.bin"),
+                    means_all[i],
+                )
+                np.savez(
+                    os.path.join(cfg.exp_train_dir, f"train_{prefix}_samples_{pan}.npz"),
+                    samples=samples_all[i], **diags_all[i],
                 )
     return out
 

@@ -232,9 +232,15 @@ def test_run_writes_every_artifact_and_its_handoff_equals_kernclust(
 
 
 def test_run_refuses_the_samplers(staged):
+    """`run --sampler` and `hmc --sampler` take the JAX package's three
+    samplers and refuse any other; the runner refuses one too. (The
+    samplers themselves run in tests/test_torch_sampler_cohort.py.)"""
     cfg_t = staged["cfg_t"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tcli.main(["run", "--cfg", _cfg_path(cfg_t), "--sampler", "vi", "--device", "cpu"])
+    for cmd in ("run", "hmc"):
+        with pytest.raises(SystemExit):
+            tcli.main([cmd, "--cfg", _cfg_path(cfg_t), "--sampler", "gibbs", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown sampler"):
+        trunner.hmc_cohort(cfg_t, [], sampler="gibbs", device="cpu")
 
 
 def test_ptinr_cohort_is_staged_byte_identical_to_jax(tmp_path):
