@@ -56,8 +56,18 @@ Phases (any failure raises and the script exits non-zero):
      card; and the rates at bench.py's sampler protocol (BENCH: draws/s,
      min bulk ESS/s, ADVI steps/s, objective batches and host reads per
      transition);
-  8. print one JSON line with the samplers' numbers, one with the kernels'
-     numbers, then the result line.
+  8. the large-patient path at canonical width: the row-blocked objective
+     at n=4096 over 4 blocks (K3 and K5 on each diagonal block), bitwise
+     alike on repeat, against the dense one of `objective_and_grad` and
+     the float64 twins, with
+     K3 and K5 on one diagonal block (B=1) timed beside `cholesky_ex` and
+     `solve_triangular`; the CLI `train` (default threshold) on a cohort
+     with one 16,384-observation patient, which trains by row blocks
+     (one `train_large` record, its NLML below the best screen value);
+     one value+gradient at n=16,384 and at n=65,536, each with its seconds
+     and its peak device memory beside utils/hbm.py's rule;
+  9. print one JSON line with the samplers' numbers, one with the large
+     patient's, one with the kernels' numbers, then the result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
@@ -79,7 +89,7 @@ import torch
 from medgp_tpu_torch.cli.main import main as cli
 from medgp_tpu_torch.config.experiment import ExperimentConfig
 from medgp_tpu_torch.data import formats
-from medgp_tpu_torch.data.cohort import load_cohort, pack_patients
+from medgp_tpu_torch.data.cohort import PatientRecord, load_cohort, pack_patients
 from medgp_tpu_torch.data.inits import default_bounds, random_inits
 from medgp_tpu_torch.data.synthetic import (
     cluster_thetas, sample_cluster_params, sample_cohort,
@@ -90,6 +100,7 @@ from medgp_tpu_torch.infer.diagnostics import ess_bulk
 from medgp_tpu_torch.infer.hmc import (
     _leapfrog, chain_starts, hmc_sample, make_potential, repeat_rows,
 )
+from medgp_tpu_torch.infer.large_train import pad_observations
 from medgp_tpu_torch.infer.map_train import screen_inits
 from medgp_tpu_torch.infer.nuts import nuts_sample
 from medgp_tpu_torch.infer.online import online_impute, unique_times
@@ -100,6 +111,7 @@ from medgp_tpu_torch.models.priors import hier_gamma_prior
 from medgp_tpu_torch.ops import cuda_build, cuda_chol, cuda_gram
 from medgp_tpu_torch.ops.nlml import jittered_chol_solve
 from medgp_tpu_torch.parallel import runner
+from medgp_tpu_torch.parallel.mesh import large_patient_nlml, large_patient_objective
 from medgp_tpu_torch.parallel.runner import (
     MAX_BATCH, TEST_MODES, _test_prior, train_cohort,
 )
@@ -183,6 +195,19 @@ THETA_REL = 1e-3
 # ADVI steps of 4 draws at the same batch.
 BENCH = dict(batch=32, n=512, warmup=32, hmc_samples=24, leapfrog=16,
              nuts_samples=12, max_depth=6, vi_steps=32, vi_mc=4)
+
+# The large-patient phases (parallel/mesh.py, infer/large_train.py) at
+# canonical width: the blocked objective against the dense one at n = 4096
+# over 4 row blocks; the CLI `train` on a cohort with one patient of 16,384
+# observations (32 shifted copies of a 512-observation one), above the
+# default threshold of 8,192, at 16 restarts and varEM 2 x 8; one
+# value+gradient at n = 16,384 and at n = 65,536 on random data, each with
+# its peak device memory against utils/hbm.py's rule.
+LARGE_N, LARGE_BLOCKS = 4096, 4
+LARGE_TRAIN_N, LARGE_TILE = 16384, 512
+LARGE_OPT = dict(random_init_num=16, random_seed=718, top_iteration_num=2,
+                 iteration_num_per_update=8)
+LARGE_EVAL_N = (16384, 65536)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): fp32
 # outside the tensor cores, and device memory. bound_ms is the larger of the two
@@ -1437,6 +1462,212 @@ def sampler_rates(dev):
     return out
 
 
+def map_like_theta(spec, dev, seed):
+    """A cluster's ground-truth hypers (the MAP a patient of that cluster
+    trains toward), jittered by 0.01 N(0, 1): (1, H) on `dev`."""
+    th = cluster_thetas(SEED, spec, 4)[0]
+    th = th + 0.01 * np.random.default_rng(seed).normal(size=th.shape)
+    return torch.as_tensor(th.astype(np.float32), device=dev)[None]
+
+
+def rel_errs(v, g, v_ref, g_ref):
+    """(value relative error, gradient max error over the reference row's
+    scale) of one objective row."""
+    v_err = float(((v.double() - v_ref.double()) / v_ref.double()).abs().max())
+    g_err = float((g.double() - g_ref.double()).abs().max() / g_ref.double().abs().max())
+    return v_err, g_err
+
+
+def diag_block_times(dev, n, reps=5):
+    """K3 and K5 on one (n, n) diagonal block (B = 1, zero noise, as the
+    blocked factorization calls them) against `cholesky_ex` of the same
+    block and `solve_triangular(L, I)`."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.randn((1, n, n), generator=gen, device=dev)
+    K = A @ A.mT / n + 0.5 * torch.eye(n, device=dev)
+    zeros = torch.zeros((1, n), device=dev)
+    L, _, linvd = cuda_chol.chol_solve(K, zeros, zeros)
+    tm = time_chol(K, zeros, zeros, L, linvd, reps)
+    tm["cholesky_ex_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps)
+    tm["cluster"] = cuda_chol.chol_cluster_size(1, n)
+    print(f"large-patient diagonal block n={n} (B=1, cluster {tm['cluster']}): "
+          f"chol_solve {tm['chol_ms']:.3f} ms, cholesky_ex {tm['cholesky_ex_ms']:.3f} ms, "
+          f"cholesky_ex + cholesky_solve {tm['chol_library_ms']:.3f} ms, bound "
+          f"{tm['chol_bound_ms']:.3f} ms; tri_inv {tm['tri_ms']:.3f} ms, "
+          f"solve_triangular {tm['tri_library_ms']:.3f} ms, bound {tm['tri_bound_ms']:.3f} ms")
+    return {k: tm[k] for k in ("chol_ms", "cholesky_ex_ms", "chol_library_ms",
+                               "chol_bound_ms", "tri_ms", "tri_library_ms",
+                               "tri_bound_ms", "cluster")}
+
+
+def large_blocked_vs_dense(dev):
+    """The blocked objective (n = 4096 over 4 row blocks of 1024, K3 and K5
+    on every diagonal block) against the dense one of `objective_and_grad`
+    on the same patient (K1-K5 at B = 1) and against the float64 twins'
+    dense objective, at jittered MAP-like hypers under the hier-gamma
+    prior: value within VALUE_REL, gradient within GRAD_TOL of the row's
+    scale. Returns (launch counts of the blocked run, the numbers)."""
+    spec = LMCSMSpec(Q, D, R)
+    data = random_patients(dev, 1, LARGE_N, 11)
+    theta = map_like_theta(spec, dev, 11)
+    prior = hier_gamma_prior(spec, beta_lam=0.01, device=dev)
+    f = large_patient_objective(spec, LARGE_BLOCKS, *(x[0] for x in data), prior=prior)
+    reset_launches()
+    v, g, ok = f(theta)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    check(counts["chol_solve"] >= LARGE_BLOCKS and counts["tri_inv"] >= LARGE_BLOCKS,
+          f"blocked objective: K3/K5 launches {counts}")
+    t0 = time.perf_counter()
+    v2, g2, _ = f(theta)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # no atomics in the path: a patient's training repeats bitwise
+    check(torch.equal(v, v2) and torch.equal(g, g2),
+          "blocked objective: two evaluations of the same theta differ")
+    dense = objective_and_grad(spec, data, prior)
+    vd, gd, okd = dense(theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense(theta)
+    torch.cuda.synchronize()
+    dense_secs = time.perf_counter() - t0
+    data64 = PatientData(data.t.double(), data.y.double(), data.meta, data.mask.double())
+    prior64 = hier_gamma_prior(spec, beta_lam=0.01, dtype=torch.float64, device=dev)
+    with twins():
+        v64, g64, ok64 = objective_and_grad(spec, data64, prior64)(theta.double())
+    check(bool(ok) and bool(okd) and bool(ok64), f"blocked/dense/float64 ok: {ok} {okd} {ok64}")
+    out = dict(seconds=secs, dense_seconds=dense_secs, value=float(v),
+               blocked_vs_dense=rel_errs(v, g, vd, gd),
+               blocked_vs_float64=rel_errs(v, g, v64, g64),
+               dense_vs_float64=rel_errs(vd, gd, v64, g64))
+    print(f"large patient n={LARGE_N} P={LARGE_BLOCKS}: blocked value+gradient "
+          f"{secs:.3f} s (dense {dense_secs:.3f} s), bitwise equal on repeat, "
+          f"launches {counts}; (value rel, "
+          f"grad/scale) blocked vs dense {out['blocked_vs_dense']}, blocked vs float64 "
+          f"{out['blocked_vs_float64']}, dense vs float64 {out['dense_vs_float64']}")
+    for name in ("blocked_vs_dense", "blocked_vs_float64"):
+        v_err, g_err = out[name]
+        check(v_err <= VALUE_REL, f"large {name}: value rel err {v_err} > {VALUE_REL}")
+        check(g_err <= GRAD_TOL, f"large {name}: grad err {g_err} > {GRAD_TOL} of scale")
+    out["diag_blocks"] = {n: diag_block_times(dev, n) for n in (LARGE_N // LARGE_BLOCKS, 4096)}
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def stage_large_cohort():
+    """Five ordinary patients (100-400 observations) and one of
+    LARGE_TRAIN_N: LARGE_TILE observations of one patient, tiled with each
+    copy shifted past the last; `generate` at LARGE_OPT. Returns (cfg_path,
+    cfg, recs)."""
+    spec = LMCSMSpec(Q, D, R)
+    feature_config = os.path.join(ROOT, "examples", "feature_all.json")
+    with open(feature_config) as f:
+        features = [x["index"] for x in json.load(f)["feature_list"]]
+    recs = sample_cohort(SEED + 2, spec, 5, n_clusters=2, n_obs_range=(100, 400))
+    big = sample_cohort(SEED + 3, spec, 1, n_clusters=1,
+                        n_obs_range=(LARGE_TILE, LARGE_TILE + 1))[0]
+    span = float(np.ceil(big.t.max() + 1.0))
+    reps = LARGE_TRAIN_N // LARGE_TILE
+    big = PatientRecord(
+        "syn_large", np.concatenate([big.t + i * span for i in range(reps)]).astype(np.float32),
+        np.tile(big.y, reps), np.tile(big.meta, reps))
+    recs.append(big)
+    write_reference_format_cohort(os.path.join(WORK, "data", "large"), recs, features)
+    cfg_path = generate_experiment("large", feature_config, LARGE_OPT, Q=Q, R=R, folds=2,
+                                   cohort="large")
+    return cfg_path, ExperimentConfig.from_json(cfg_path), recs
+
+
+def large_train_cli(dev):
+    """CLI `train` on the staged cohort with its default threshold: the
+    large patient trains by row blocks after the bucket. Checks one
+    `train_large` record (trained, finite loss), every patient's train
+    files, the NLML at the trained hypers at or below the best screen
+    value (the NLML at train_init_hyp), K3 and K5 launches, and prints the
+    peak device memory beside the plan's rule."""
+    cfg_path, cfg, recs = stage_large_cohort()
+    spec = LMCSMSpec(Q, D, R)
+    free = torch.cuda.mem_get_info(0)[0]
+    plan = hbm.large_block_plan(LARGE_TRAIN_N, free, Q)
+    secs, counts = run_path("train (large patient)", ["train", "--cfg", cfg_path,
+                                                      "--device", str(dev)], tuple(KERNELS))
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(cfg.exp_log_dir, "metrics.jsonl")) as f:
+        large = [json.loads(x) for x in f if '"stage": "train_large"' in x]
+    check(len(large) == 1, f"expected one train_large record, got {len(large)}")
+    rec = large[0]
+    check(rec["trained"] == 1 and np.isfinite(rec["nlml"]) and rec["devices"] == 1
+          and rec["n_obs"] == LARGE_TRAIN_N, f"train_large record {rec}")
+    check_train_outputs(cfg, recs)
+    big = recs[-1]
+    p = formats.train_paths(cfg.exp_train_dir, big.pan)
+    P, b, n_pad = plan
+    padded = pad_observations(big.t, big.y, big.meta, n_pad)
+    args = tuple(torch.as_tensor(a, device=dev) for a in padded)
+    nlml = large_patient_nlml(spec, P)
+    screen_v, _ = nlml(torch.as_tensor(formats.read_double_bin(p["init"]), dtype=torch.float32,
+                                       device=dev), *args)
+    final_v, ok = nlml(torch.as_tensor(formats.read_double_bin(p["hyp"]), dtype=torch.float32,
+                                       device=dev), *args)
+    check(bool(ok) and float(final_v) <= float(screen_v),
+          f"large patient: NLML {float(final_v)} at the trained hypers above the best "
+          f"screen value {float(screen_v)}")
+    rule = hbm.large_patient_bytes(n_pad, b, Q)
+    out = dict(seconds=secs, train_large_seconds=rec["seconds"], map_loss=rec["nlml"],
+               screen_nlml=float(screen_v), trained_nlml=float(final_v), plan=plan,
+               peak_bytes=peak, rule_bytes=rule)
+    print(f"train (large patient): n={LARGE_TRAIN_N} plan (P, b, n_pad) {plan}; "
+          f"{rec['seconds']:.2f} s for it; NLML best screen {float(screen_v):.3f} -> "
+          f"trained {float(final_v):.3f} (MAP loss {rec['nlml']:.3f}); peak device "
+          f"memory {peak / 2**30:.3f} GiB, the plan's rule {rule / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def large_value_and_grad(dev, n):
+    """One value+gradient of the blocked objective on a random patient of n
+    observations at bench.py's thetas, with the plan from the free memory:
+    its seconds, its peak device memory beside utils/hbm.py's rule, and the
+    rule's prediction at n = 100,000 on this card."""
+    spec = LMCSMSpec(Q, D, R)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(0)[0]
+    P, b, n_pad = hbm.large_block_plan(n, free, Q)
+    data = random_patients(dev, 1, n_pad, 12)
+    theta = random_thetas(dev, spec, 1, 12)
+    f = large_patient_objective(spec, P, *(x[0] for x in data),
+                                prior=hier_gamma_prior(spec, beta_lam=0.01, device=dev))
+    reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v, g, ok = f(theta)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = read_launches()
+    check(bool(ok) and bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all()),
+          f"large value+gradient n={n}: not finite")
+    rule = hbm.large_patient_bytes(n_pad, b, Q)
+    p100 = hbm.large_block_plan(100000, free, Q)
+    rule100 = hbm.large_patient_bytes(p100[2], p100[1], Q)
+    # forward n^3/3 and the backward's solves 2 n^3/3 (parallel/mesh.py)
+    bound_s = bound(float(n_pad) ** 3, 4.0 * n_pad * (n_pad + b) / 2)[0] / 1e3
+    out = dict(n=n, plan=(P, b, n_pad), seconds=secs, bound_seconds=bound_s,
+               peak_bytes=peak, rule_bytes=rule, free_bytes=free,
+               plan_100000=p100, rule_100000=rule100)
+    print(f"large value+gradient n={n} (P, b, n_pad) {(P, b, n_pad)}: {secs:.3f} s "
+          f"(bound {bound_s:.3f} s at 67 TFLOP/s fp32); peak {peak / 2**30:.3f} GiB, "
+          f"the rule {rule / 2**30:.3f} GiB of {free / 2**30:.2f} GiB free; n=100,000 "
+          f"plan {p100}, rule {rule100 / 2**30:.3f} GiB; launches {counts}")
+    check(peak <= free, f"large value+gradient n={n}: peak {peak} above free {free}")
+    del data, f, v, g
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1614,12 +1845,20 @@ def main():
     phase_done("Gaussian targets")
     bench_rates = sampler_rates(dev)
     phase_done("sampler rates")
+    lg_c, lg_dense = large_blocked_vs_dense(dev)
+    phase_done("large patient: blocked vs dense")
+    lt_c, lg_train = large_train_cli(dev)
+    phase_done("train (large patient)")
+    lg_evals = {n: large_value_and_grad(dev, n) for n in LARGE_EVAL_N}
+    phase_done("large value+gradient")
 
     by_path = {
         name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
                "run": run_c[name], "run_ptinr": acc_c[name],
                **{f"hmc_{k}": v[1][name] for k, v in samplers.items()},
-               "run_sampler": rs_c[name]}
+               "run_sampler": rs_c[name], "large_vs_dense": lg_c[name],
+               "train_large": lt_c[name],
+               **{f"large_{n}": c[name] for n, (c, _) in lg_evals.items()}}
         for name in KERNELS
     }
     src = "medgp_tpu_torch/csrc/"
@@ -1644,7 +1883,8 @@ def main():
                  k2[(128, True)], "B=128 n=512 Q=5 D=24 masked"),
              d48=k2[(128, True, 48)]),
         dict(row("chol_solve", "chol.cuh", "medgp_tpu/ops/pallas_chol.py:235",
-                 chol_r, "B=1024 n=512"), more_shapes=chol_more),
+                 chol_r, "B=1024 n=512"), more_shapes=chol_more,
+             large_diag_blocks=lg_dense["diag_blocks"]),
         dict(row("qmat", "qmat.cuh", "medgp_tpu/ops/pallas_chol.py:479",
                  k4[(128, 512)], "B=128 n=512"),
              tri_inv_ms=k4[(128, 512)]["tri_inv_ms"], syrk_ms=k4[(128, 512)]["syrk_ms"],
@@ -1665,6 +1905,10 @@ def main():
         "hmc_phases": {k: dict(seconds=v[0], **v[2]) for k, v in samplers.items()},
         "run_sampler": dict(seconds=rs_s, stages=rs_stages),
         "gaussian": gauss, "bench_protocol": bench_rates,
+    }}))
+    print(json.dumps({"large_patient": {
+        "blocked_vs_dense": lg_dense, "train": lg_train,
+        "value_and_grad": {n: o for n, (_, o) in lg_evals.items()},
     }}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

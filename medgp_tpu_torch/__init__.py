@@ -15,8 +15,10 @@ with their diagnostics; CLI ``hmc``) and the fused ``run`` (with
 ``--sampler``), with all five TPU kernels written by hand in CUDA
 (``csrc/``): the LMC-SM gram (K1) and its backward (K2), the fused
 Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
-triangular inverse (K5). Not yet: the row-blocked path for large LMC-SM
-patients, several devices.
+triangular inverse (K5), and the row-blocked path for LMC-SM patients
+above the large-patient threshold (``parallel/mesh.py``,
+``infer/large_train.py``: K3 and K5 on every diagonal block), on one
+device. Not yet: several devices.
 """
 
 import torch

@@ -14,8 +14,10 @@ read and write the reference-format artifacts, so either package's output
 drives the other's next stage. `train`, `kernclust`, `test`, `hmc` and
 `run` run on the CUDA card; without one they stop with a message unless
 `--device cpu` asks for the CPU (the kernels' plain twins). `eval` is host
-numpy. `test` runs both test modes unless `--mode` picks one. Not ported
-yet: the row-blocked path for large LMC-SM patients and several devices.
+numpy. `test` runs both test modes unless `--mode` picks one. `train` and
+`run` train LMC-SM patients above the large-patient threshold
+(`--large-threshold`, default the config's) by row blocks on the same
+device. Not ported yet: several devices.
 """
 
 from __future__ import annotations
@@ -306,9 +308,8 @@ def build_parser():
     r.add_argument("--max-batch", type=int, default=128)
     r.add_argument(
         "--large-threshold", type=int, default=None,
-        help="n_obs above which an LMC-SM patient needs the row-blocked "
-        "path, which is not ported: refused (default: "
-        "cfg.large_patient_threshold)",
+        help="n_obs above which an LMC-SM patient trains by row blocks "
+        "(default: cfg.large_patient_threshold)",
     )
     r.add_argument(
         "--ckpt-dir", default=None,

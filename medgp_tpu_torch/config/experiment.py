@@ -61,7 +61,7 @@ class ExperimentConfig:
     online_learn_rate: float = 1e-5
     online_momentum: float = 0.9
 
-    # outlier-large patients (trained by the JAX package's row-sharded path)
+    # outlier-large LMC-SM patients (trained by row blocks, infer/large_train.py)
     large_patient_threshold: int = 8192
     large_patient_restarts: int = 64
 

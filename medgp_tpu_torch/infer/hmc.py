@@ -31,7 +31,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from medgp_tpu_torch.models.gp import PatientData, objective_and_grad, posterior_at
+from medgp_tpu_torch.models.gp import PatientData, nlml_fn, posterior_at
 from medgp_tpu_torch.models.params import KernelSpec
 from medgp_tpu_torch.models.priors import PriorSpec
 
@@ -253,6 +253,12 @@ def hmc_sample(
     )
 
 
+def finite_grad(g: torch.Tensor) -> torch.Tensor:
+    """The potential's gradient rule (hmc.py:281): each entry that is not
+    finite becomes 0, every other entry stays as it is."""
+    return torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+
 def make_potential(
     spec: KernelSpec,
     data: PatientData,
@@ -260,20 +266,23 @@ def make_potential(
     max_retries: int = 10,
 ) -> Potential:
     """U(theta) = NLML - log prior over the rows of `data` (hmc.py:263-284):
-    +inf with a zero gradient where the factorization failed or the patient
-    has <= 2 observations, so the proposal is rejected rather than crashing
-    the batch.
-
-    Built on `objective_and_grad`, which also multiplies the gradient by the
-    prior's `grad_mask` (the samplers do so themselves too) and zeroes a
-    row's whole gradient where any entry is not finite; the JAX package
-    zeroes the non-finite entries alone. tests/test_torch_hmc.py holds the
-    two alike on failed and short patients (ROADMAP §C)."""
-    f = objective_and_grad(spec, data, prior, max_retries)
+    +inf where the factorization failed or the patient has <= 2
+    observations, so the proposal is rejected rather than crashing the
+    batch, with a zero gradient there. The gradient is autograd's through
+    `nlml_fn`, with its non-finite entries zeroed (`finite_grad`); the
+    prior's `grad_mask` is left to the samplers, which apply it."""
+    loss = nlml_fn(spec, data, prior, max_retries)
 
     def potential_grad(theta):
-        u, g, _ = f(theta)
-        return u, g
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_()
+            u, res = loss(th)
+            ok = res.ok & (data.n_obs > 2)
+            # failed rows enter the sum as 0, so no inf reaches autograd;
+            # their gradient is 0, as JAX's `where` gives
+            total = torch.where(ok, u, torch.zeros_like(u)).sum()
+            (g,) = torch.autograd.grad(total, th)
+        return u.detach(), finite_grad(g)
 
     return potential_grad
 

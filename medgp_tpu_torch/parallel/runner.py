@@ -5,8 +5,9 @@ Counterpart of ``medgp_tpu/parallel/runner.py`` (`train_cohort`,
 `_test_prior`). Each padded bucket of patients runs as one batched
 `train_one_patient`, `online_impute` or sampler call on one device. The
 TPU-only parts (pow-2 batch padding to bound recompiles, the device mesh,
-the explicit compile step) have no counterpart here; the row-blocked path
-for large LMC-SM patients is not ported yet (ROADMAP A7).
+the explicit compile step) have no counterpart here. LMC-SM patients above
+the large-patient threshold train one at a time by row blocks
+(`infer/large_train.py`), on the same one device.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from medgp_tpu_torch.infer.diagnostics import (
     invariant_posterior_mean, summarize_diagnostics,
 )
 from medgp_tpu_torch.infer.hmc import hmc_patient
+from medgp_tpu_torch.infer.large_train import train_one_large_patient
 from medgp_tpu_torch.infer.map_train import train_one_patient
 from medgp_tpu_torch.infer.nuts import nuts_patient
 from medgp_tpu_torch.infer.online import OnlineResult, online_impute, unique_times
@@ -149,25 +151,57 @@ def train_cohort(
     whose key matches and trains the rest.
 
     LMC-SM patients above the large-patient threshold (`large_threshold`,
-    default cfg.large_patient_threshold) need the row-blocked objective,
-    which is not ported yet (ROADMAP A7), and are refused; SE and SM
-    patients above it train in ordinary buckets, as in the JAX package."""
+    default cfg.large_patient_threshold) train after the buckets, one at a
+    time, by row blocks (`train_one_large_patient`, from the first
+    cfg.large_patient_restarts restarts), each with a `train_large` record
+    (pan, n_obs, devices, seconds, nlml, trained); checkpoints stay per
+    bucket. SE and SM patients above it train in ordinary buckets, as in
+    the JAX package (medgp_tpu/parallel/runner.py:189-208, 355-386)."""
     spec = cfg.spec()
     thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
-    large = [r.pan for r in records if r.n_obs > thr]
-    if large and isinstance(spec, LMCSMSpec):
-        raise NotImplementedError(
-            f"LMC-SM patients {large[:5]} have more than {thr} observations: "
-            "the row-blocked large-patient path "
-            "(medgp_tpu/infer/large_train.py) is not ported yet (ROADMAP A7)"
-        )
+    large = []
+    if isinstance(spec, LMCSMSpec):
+        large = [r for r in records if r.n_obs > thr]
+        records = [r for r in records if r.n_obs <= thr]
     device = torch.device(device)
     S = n_restarts or cfg.random_init_num
     inits = random_inits(cfg.random_seed, spec, cfg.bounds(), S).to(device)
     metrics = stage_metrics(cfg)
     out: Dict[str, dict] = {}
-    if not records:
-        return out
+    if records:
+        _train_buckets(cfg, spec, records, inits, max_batch, ckpt_dir, device,
+                       metrics, write, out)
+    for rec in large:
+        t0 = time.perf_counter()
+        res = train_one_large_patient(
+            spec, rec.t, rec.y, rec.meta, inits[:cfg.large_patient_restarts],
+            prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
+            top_iters=cfg.top_iteration_num,
+            sub_opt_iter=cfg.iteration_num_per_update, device=device,
+        )
+        dt = time.perf_counter() - t0
+        log.info(
+            "trained large patient %s (n=%d, by row blocks on %s) in %.1fs: "
+            "flag=%s loss=%.3f", rec.pan, rec.n_obs, device, dt, res["flag"],
+            res["loss"],
+        )
+        metrics.write(
+            "train_large", pan=rec.pan, n_obs=rec.n_obs, devices=1,
+            seconds=dt, nlml=res["loss"], trained=int(res["flag"]),
+        )
+        out[rec.pan] = res
+        if write:
+            formats.write_train_result(
+                cfg.exp_train_dir, rec.pan, res["theta"], res["init_theta"],
+                res["var_state"], res["flag"], res["n_obs"],
+            )
+    return out
+
+
+def _train_buckets(cfg, spec, records, inits, max_batch, ckpt_dir, device,
+                   metrics, write, out):
+    """The bucketed half of `train_cohort`: fills `out` and writes the
+    train files of every bucket, trained or restored from `ckpt_dir`."""
     n_top = bucket_edges([r.n_obs for r in records])[-1]
     batches = pack_patients(
         records, max_batch=min(max_batch, train_batch_cap(n_top, device)),
@@ -207,7 +241,6 @@ def train_cohort(
                     None if var_flat is None else var_flat[i],
                     bool(flags[i]), int(nobs[i]),
                 )
-    return out
 
 
 # --------------------------------------------------------------------------

@@ -23,8 +23,10 @@ the (n, n) float32 arrays live per system at its stage's peak:
     `train_batch_cap(n)` = free / 4 / (6 * 4 n^2) patients.
 
 The rest is left to PyTorch's caching allocator and to the kernels'
-other outputs. Host (CPU) runs use the plain PyTorch versions of the
-kernels and a fixed budget of CPU_BUDGET_BYTES.
+other outputs. A large patient (parallel/mesh.py) has its own plan,
+`large_block_plan`, from the rule in its docstring. Host (CPU) runs use
+the plain PyTorch versions of the kernels and a fixed budget of
+CPU_BUDGET_BYTES.
 """
 
 from __future__ import annotations
@@ -73,3 +75,64 @@ def screen_chunk_systems(n: int, device: torch.device | str) -> int:
 def train_batch_cap(n: int, device: torch.device | str) -> int:
     """Patients per train bucket at length n."""
     return _systems(device, TRAIN_SHARE, TRAIN_BUFFERS_PER_PATIENT, n)
+
+
+LARGE_BLOCK_MAX = 4096  # the largest n at which K3 and K5 were held and timed
+LARGE_SHARE = 0.9       # of the free bytes; the rest is the allocator's rounding
+# (n, b) float32 workspaces live beside L at the peak: the last row block
+# of the gram while cross_gram_lmcsm builds it (the row, its squared
+# distance and the accumulating sum, and per component the B_q entries,
+# the distance, the cosine and exponential and their products: about 7)
+# and the mask product; then the panel and its product, and in the
+# backward the block column of K^{-1} that becomes Qbar in place.
+LARGE_WORKSPACES = 8
+# (b, b) tiles that autograd keeps through one gram tile of the backward:
+# per component the cosine's argument, the cosine, the exponential, the
+# B_q entries and their product; shared, the squared distance, the
+# distance, the time differences and the gradient's temporaries.
+LARGE_TILE_BUFFERS_PER_COMPONENT = 5
+LARGE_TILE_BUFFERS_SHARED = 8
+
+
+def large_patient_bytes(n_pad: int, b: int, components: int) -> int:
+    """Device bytes of one value+gradient of a padded large patient of
+    n_pad = P b rows (parallel/mesh.py), all float32: L's lower block
+    triangle, n_pad (n_pad + b) / 2 values; the P diagonal-block
+    inverses, P b^2; LARGE_WORKSPACES (n_pad, b) workspaces; and the
+    gram tile's autograd buffers, (LARGE_TILE_BUFFERS_PER_COMPONENT *
+    components + LARGE_TILE_BUFFERS_SHARED) (b, b) tiles."""
+    P = n_pad // b
+    tiles = LARGE_TILE_BUFFERS_PER_COMPONENT * components + LARGE_TILE_BUFFERS_SHARED
+    return 4 * (n_pad * (n_pad + b) // 2 + P * b * b + LARGE_WORKSPACES * n_pad * b
+                + tiles * b * b)
+
+
+def large_block_plan(n: int, free_bytes: int, components: int = 5, blocks=None):
+    """(P, b, n_pad) for a large patient of n observations with `components`
+    LMC-SM components: P row blocks of b rows, b a multiple of K3's 32-wide
+    block and at most LARGE_BLOCK_MAX, n_pad = P b >= n.
+
+    For the largest b_max <= LARGE_BLOCK_MAX (a multiple of 32) that fits,
+    P = ceil(n / b_max), b = round_up(ceil(n / P), 32) and n_pad = P b;
+    it fits when `large_patient_bytes(n_pad, b, components)` is within
+    LARGE_SHARE of `free_bytes`. So L takes n_pad (n_pad + b) / 2 values
+    and every workspace O(n b). `blocks` fixes P instead (tests, parity
+    checks). Raises when even b = 32 does not fit."""
+    def ceil_div(a, c):
+        return -(-a // c)
+
+    def plan(P):
+        b = ceil_div(ceil_div(n, P), 32) * 32
+        return P, b, P * b
+
+    if blocks is not None:
+        return plan(int(blocks))
+    budget = LARGE_SHARE * free_bytes
+    for b_max in range(LARGE_BLOCK_MAX, 31, -32):
+        P, b, n_pad = plan(ceil_div(n, b_max))
+        if large_patient_bytes(n_pad, b, components) <= budget:
+            return P, b, n_pad
+    raise MemoryError(
+        f"large patient of {n} observations: {large_patient_bytes(n + 32, 32, components)}"
+        f" bytes at b = 32 exceed {LARGE_SHARE} of the {free_bytes} free"
+    )

@@ -195,10 +195,9 @@ def gp_rows():
 
 def test_make_potential_matches_jax_with_failed_and_short_patients(gp_rows):
     """U with its +inf entries, and dU, against JAX's make_potential,
-    vmapped. The port zeroes a row's whole gradient where any entry is not
-    finite, the JAX package the entries alone: on none of these rows is
-    the JAX gradient non-finite in some entries only, so the two rules give
-    one result."""
+    vmapped: both zero the non-finite entries of the gradient alone
+    (`test_potential_zeroes_non_finite_entries_only` holds the rule on a
+    gradient that is partly non-finite)."""
     ju, jg, raw = gp_rows["want"][:3]
     fin = np.isfinite(raw)
     assert np.all(fin.all(1) | ~fin.any(1)), "a JAX gradient row is partly non-finite"
@@ -210,6 +209,40 @@ def test_make_potential_matches_jax_with_failed_and_short_patients(gp_rows):
     assert torch.all(g[~torch.as_tensor(ok)] == 0) and np.all(jg[~ok] == 0)
     for i in (0, 1, 2, 3, 7):  # row 6: every lag but 0 underflows, dU is rounding
         _close64(g[i].numpy(), jg[i])
+
+
+def test_potential_zeroes_non_finite_entries_only():
+    """The port's gradient rule against the JAX potential's
+    `jnp.where(jnp.isfinite(g), g, 0)` (hmc.py:281) on rows with a finite U
+    whose gradient is finite in some entries and inf or NaN in others, and
+    through `make_potential` on a potential whose autograd gradient is
+    partly non-finite."""
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=(4, 9)).astype(np.float32)
+    g[0, [1, 4]] = np.inf
+    g[1, 2] = -np.inf
+    g[2, [0, 8]] = np.nan
+    want = np.asarray(jnp.where(jnp.isfinite(g), g, jnp.zeros_like(g)))
+    got = thmc.finite_grad(torch.as_tensor(g)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(np.isfinite(got[3]), np.ones(9, bool)) and np.array_equal(got[3], g[3])
+
+    # sqrt at 0 has an infinite derivative: U finite, dU partly inf
+    class _Res:
+        ok = torch.ones(2, dtype=torch.bool)
+
+    def loss(th):
+        return torch.sqrt(th).sum(-1), _Res()
+
+    data = tgp.PatientData(*(torch.ones(2, 3) for _ in range(4)))
+    orig = thmc.nlml_fn
+    thmc.nlml_fn = lambda *a, **k: loss
+    try:
+        u, du = thmc.make_potential(None, data)(torch.tensor([[0.0, 4.0], [1.0, 0.0]]))
+    finally:
+        thmc.nlml_fn = orig
+    np.testing.assert_array_equal(u.numpy(), [2.0, 1.0])
+    np.testing.assert_array_equal(du.numpy(), [[0.0, 0.25], [0.5, 0.0]])
 
 
 def test_leapfrog_matches_jax_on_a_gp_potential(gp_rows):

@@ -7,9 +7,9 @@ changed cohort re-trains its bucket; CLI `train --ckpt-dir` works. Only the
 port's own resume is held: the JAX package caps its buckets otherwise and
 writes orbax checkpoints, so bucket indices and files differ between them.
 
-Above the threshold, SE and SM patients train in ordinary buckets and only
-LMC-SM patients are refused (their row-blocked path is not ported), as the
-JAX package routes them. The SE case is held against the JAX
+Above the threshold, SE and SM patients train in ordinary buckets and
+LMC-SM patients leave them for the row-blocked path, as the JAX package
+routes them. The SE case is held against the JAX
 `train_cohort` as tests/test_torch_train.py holds the CLI train stage:
 flags and counts equal, and the NLML at the two trained thetas, evaluated
 alike in float64, within NLML_REL.
@@ -172,12 +172,26 @@ def test_se_patients_above_the_threshold_train_like_jax(tmp_path, monkeypatch):
 
 
 def test_lmcsm_patients_above_the_threshold_are_refused(tmp_path):
+    """LMC-SM patients above the threshold are refused by the buckets: they
+    train after them by row blocks, one `train_large` record each (devices
+    1), as the JAX package routes them (tests/test_torch_large_train.py
+    holds that path to the JAX one). At the longest patient's count
+    nothing is above it."""
     cfg = _experiment(tmp_path)
     recs = tcohort.load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
     thr = max(r.n_obs for r in recs) - 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        trunner.train_cohort(cfg, recs, large_threshold=thr, device="cpu")
-    # at the longest patient's count nothing is above it
+    big = [r.pan for r in recs if r.n_obs > thr]
+    out = trunner.train_cohort(cfg, recs, large_threshold=thr, write=False, device="cpu")
+    assert set(out) == {r.pan for r in recs}
+    large = _stage_records(cfg, "train_large")
+    assert [r["pan"] for r in large] == big and [r["devices"] for r in large] == [1]
+    assert sum(r["batch"] for r in _train_records(cfg)) == len(recs) - 1
     out = trunner.train_cohort(cfg, recs[:1], large_threshold=recs[0].n_obs,
                                write=False, device="cpu")
     assert len(out) == 1
+    assert len(_stage_records(cfg, "train_large")) == 1
+
+
+def _stage_records(cfg, stage):
+    with open(os.path.join(cfg.exp_log_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["stage"] == stage]
