@@ -66,8 +66,32 @@ Phases (any failure raises and the script exits non-zero):
      (one `train_large` record, its NLML below the best screen value);
      one value+gradient at n=16,384 and at n=65,536, each with its seconds
      and its peak device memory beside utils/hbm.py's rule;
-  9. print one JSON line with the samplers' numbers, one with the large
-     patient's, one with the kernels' numbers, then the result line.
+  9. the multi-rank phases: mesh_world1, an NCCL group of one rank on the
+     card, runs `train_cohort`, `test_cohort` (each mode as phase 5 ran
+     it) and `hmc_cohort` (hmc, as phase 7's CLI `hmc`) with use_mesh=True,
+     each equal bitwise to phase 5's and 7's files, the per-fold noise
+     modes over NCCL within MESH_NOISE_REL of the host float64 KDE, and one
+     row-sharded value+gradient at n = 16,384 over 4 blocks through the
+     collective helpers, equal bitwise to the one-device blocked path;
+     then two ranks sharing the one card over gloo (NCCL refuses two ranks
+     on one device), each phase one `torchrun` of this script (`--rank`):
+     mesh_shared_card, the CLI `run` at full width with two folds: each
+     rank's recorded slice of every train bucket must be that bucket's
+     rows and train on this one device to the rank's bits, rank 0's train
+     files must hold them (check_rank_slices), and its mode kernels must
+     equal those of the host path on the same train files but for the
+     noise block (within MESH_NOISE_REL); the train path is not
+     batch-invariant on the card, so the files are also compared with
+     phase 6's full-width `run`, which trains whole buckets, and the
+     difference printed; and large_sharded_shared_card, the row-sharded
+     value+gradient of mesh_world1 over two ranks (two blocks each), its
+     value within MESH_VALUE_REL and its gradient within MESH_GRAD_TOL of
+     the row's scale of the one-rank result, with each rank's peak device
+     memory beside utils/hbm.py's rule at world 2. Each rank writes its
+     launch counts to a JSON file, which the kernels line adds in;
+ 10. print one JSON line with the samplers' numbers, one with the large
+     patient's, one with the multi-rank phases', one with the kernels'
+     numbers, then the result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
@@ -79,14 +103,18 @@ import json
 import logging
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from medgp_tpu_torch.cli.main import main as cli
+from medgp_tpu_torch.cluster.kde import kde_mode_batch
 from medgp_tpu_torch.config.experiment import ExperimentConfig
 from medgp_tpu_torch.data import formats
 from medgp_tpu_torch.data.cohort import PatientRecord, load_cohort, pack_patients
@@ -110,10 +138,17 @@ from medgp_tpu_torch.models.params import LMCSMSpec, theta_from_numpy
 from medgp_tpu_torch.models.priors import hier_gamma_prior
 from medgp_tpu_torch.ops import cuda_build, cuda_chol, cuda_gram
 from medgp_tpu_torch.ops.nlml import jittered_chol_solve
+from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold
+from medgp_tpu_torch.infer.map_train import train_one_patient
+from medgp_tpu_torch.parallel import mesh as mesh_module
 from medgp_tpu_torch.parallel import runner
-from medgp_tpu_torch.parallel.mesh import large_patient_nlml, large_patient_objective
+from medgp_tpu_torch.parallel.launch import init_distributed, rank_device
+from medgp_tpu_torch.parallel.mesh import (
+    cohort_mesh, large_patient_nlml, large_patient_objective, pad_batch_to,
+    population_noise_modes_by_fold, round_up,
+)
 from medgp_tpu_torch.parallel.runner import (
-    MAX_BATCH, TEST_MODES, _test_prior, train_cohort,
+    MAX_BATCH, TEST_MODES, _test_prior, hmc_cohort, test_cohort, train_cohort,
 )
 from medgp_tpu_torch.utils import hbm
 
@@ -208,6 +243,19 @@ LARGE_TRAIN_N, LARGE_TILE = 16384, 512
 LARGE_OPT = dict(random_init_num=16, random_seed=718, top_iteration_num=2,
                  iteration_num_per_update=8)
 LARGE_EVAL_N = (16384, 65536)
+
+# The multi-rank phases: the row-sharded value+gradient at n = 16,384 over
+# 4 row blocks of 4,096 (on one rank, and two blocks a rank on two); the
+# mesh's float32 noise modes against the host float64 KDE (the JAX
+# package's tolerance, tests/test_mesh.py:240); two ranks against one:
+# the value and the gradient over the row's scale; each torchrun's time
+# limit.
+MESH_LARGE_N, MESH_LARGE_BLOCKS = 16384, 4
+MESH_NOISE_REL = 2e-3
+MESH_VALUE_REL = 1e-6
+MESH_GRAD_TOL = 1e-5
+RANKS_SHARED = 2
+RANK_TIMEOUT = 420
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): fp32
 # outside the tensor cores, and device memory. bound_ms is the larger of the two
@@ -1312,7 +1360,8 @@ def run_samplers(cfg_path, cfg, dev):
                 check(np.array_equal(s, again[pan]), f"{pan}: a second hmc run differs")
             print(f"hmc --sampler hmc: a second run repeats all {len(again)} patients' "
                   f"draws bitwise")
-    return out
+            hmc_draws = samples
+    return out, hmc_draws
 
 
 def run_with_sampler(dev):
@@ -1668,6 +1717,376 @@ def large_value_and_grad(dev, n):
     return counts, out
 
 
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def counted(name, fn, needs, counts):
+    """fn() with the launch counters set to 0 just before and read just
+    after into counts[name]; every kernel in `needs` must have launched.
+    Returns (fn's result, seconds)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts[name] = read_launches()
+    for k in needs:
+        check(counts[name][k] > 0, f"{name} never launched {k}")
+    print(f"{name}: {seconds:.2f} s; launches {counts[name]}")
+    return out, seconds
+
+
+def mesh_large_case(dev):
+    """The random patient of MESH_LARGE_N observations, bench.py's theta
+    and the hier-gamma prior, from seeds (large_value_and_grad's data)."""
+    spec = LMCSMSpec(Q, D, R)
+    data = random_patients(dev, 1, MESH_LARGE_N, 12)
+    return (spec, tuple(x[0] for x in data), random_thetas(dev, spec, 1, 12),
+            hier_gamma_prior(spec, beta_lam=0.01, device=dev))
+
+
+def mesh_world1(dev, cfg, hmc_draws):
+    """The mesh path at world 1 over NCCL on the card (see the module
+    docstring, phase 9). Returns (launch counts by path, numbers)."""
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        return _mesh_world1(dev, cfg, hmc_draws)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_world1(dev, cfg, hmc_draws):
+    mesh = cohort_mesh(dev)
+    check((mesh.backend, mesh.world, mesh.rank) == ("nccl", 1, 0), f"mesh {mesh}")
+    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
+    counts, secs = {}, {}
+    train_needs = ("gram_lmcsm", "chol_solve", "qmat", "gram_lmcsm_bwd")
+    tr, secs["train"] = counted("mesh_train", lambda: train_cohort(
+        cfg, recs, write=False, device=dev, use_mesh=True), train_needs, counts)
+    for r in recs:
+        p = formats.train_paths(cfg.exp_train_dir, r.pan)
+        got = tr[r.pan]
+        same = (got["flag"] == bool(int(formats.read_int_txt(p["flag"])[0]))
+                and np.array_equal(got["init_theta"], formats.read_double_bin(p["init"])))
+        if got["flag"]:
+            same = (same and np.array_equal(got["theta"], formats.read_double_bin(p["hyp"]))
+                    and np.array_equal(got["var_state"], formats.read_double_bin(p["var_hyp"])))
+        check(same, f"{r.pan}: train_cohort over the mesh differs from `train`'s files")
+    print(f"mesh_world1 train_cohort: {len(recs)} patients bitwise equal to `train`'s files")
+
+    index = {pan: i for i, pan in enumerate(cfg.pans())}
+    cv = cfg.cv_assign()
+    by_mode = {
+        "mean_wo_update": (np.asarray([cv[index[r.pan]] for r in recs]),
+                           ("gram_lmcsm", "chol_solve", "tri_inv")),
+        "mean_w_update": (np.zeros(len(recs), int), tuple(KERNELS)),
+    }
+    for mode, (folds, needs) in by_mode.items():
+        # `test`'s files, read before test_cohort writes its own over them
+        files = {r.pan: formats.read_test_result(cfg.exp_test_dir, mode, r.pan)[1] for r in recs}
+        te, secs[f"test_{mode}"] = counted(f"mesh_test_{mode}", lambda: test_cohort(
+            cfg, recs, folds=folds, modes=(mode,), device=dev, use_mesh=True), needs, counts)
+        for r in recs:
+            for k in ("pred", "error", "ci", "var"):
+                check(np.array_equal(te[r.pan][mode][k], files[r.pan][k]),
+                      f"{r.pan}: test_cohort {mode} {k} over the mesh differs from `test`'s")
+        print(f"mesh_world1 test_cohort {mode}: bitwise equal to `test`'s files")
+
+    hm, secs["hmc"] = counted("mesh_hmc", lambda: hmc_cohort(
+        cfg, recs, num_chains=SAMPLER_BUDGET["chains"], num_warmup=SAMPLER_BUDGET["warmup"],
+        num_samples=SAMPLER_BUDGET["samples"], num_leapfrog=SAMPLER_BUDGET["leapfrog"],
+        sampler="hmc", write=False, device=dev, use_mesh=True), train_needs, counts)
+    for pan, draws in hmc_draws.items():
+        check(np.array_equal(hm[pan]["samples"], draws),
+              f"{pan}: hmc_cohort over the mesh differs from `hmc --sampler hmc`'s draws")
+    print(f"mesh_world1 hmc_cohort: {len(hmc_draws)} patients' draws bitwise equal to "
+          f"`hmc --sampler hmc`'s")
+
+    pans, hyps = formats.read_train_kernels(cfg.exp_train_dir, cfg.pans())
+    fold_of = np.asarray([cv[index[pan]] for pan in pans], np.int32)
+    t0 = time.perf_counter()
+    got = population_noise_modes_by_fold(cfg.spec(), mesh, cfg.cv_fold_num)(
+        torch.as_tensor(hyps.astype(np.float32), device=dev),
+        torch.ones(len(pans), device=dev), torch.as_tensor(fold_of, device=dev))
+    got = got.double().cpu().numpy()
+    secs["noise_modes"] = time.perf_counter() - t0
+    keep = [fold_of != f for f in range(cfg.cv_fold_num)] + [np.ones(len(pans), bool)]
+    want = np.stack([np.log(kde_mode_batch(np.exp(hyps[k, :D]).T, weighted=True, device=dev))
+                     for k in keep])
+    noise_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"mesh_world1 noise modes ({cfg.cv_fold_num} folds + all, {len(pans)} patients) "
+          f"over NCCL in {secs['noise_modes']:.3f} s: max relative difference "
+          f"{noise_rel:.3e} from the host float64 KDE (tol {MESH_NOISE_REL:g})")
+    check(noise_rel <= MESH_NOISE_REL, f"noise modes {noise_rel} > {MESH_NOISE_REL}")
+
+    spec, args, theta, prior = mesh_large_case(dev)
+    v1, g1, ok1 = large_patient_objective(spec, MESH_LARGE_BLOCKS, *args, prior=prior)(theta)
+    (vm, gm, okm), secs["large"] = counted("mesh_large", lambda: large_patient_objective(
+        spec, MESH_LARGE_BLOCKS, *args, prior=prior, mesh=mesh)(theta),
+        ("chol_solve", "tri_inv"), counts)
+    check(bool(ok1) and bool(okm) and torch.equal(v1, vm) and torch.equal(g1, gm),
+          "the row-sharded value+gradient at world 1 differs from the one-device blocked path")
+    np.savez(os.path.join(WORK, "mesh_large_w1.npz"), value=vm.cpu().numpy(),
+             grad=gm.cpu().numpy())
+    print(f"mesh_world1 large n={MESH_LARGE_N} P={MESH_LARGE_BLOCKS}: value+gradient "
+          f"bitwise equal to the one-device blocked path")
+    del args, v1, g1, vm, gm
+    torch.cuda.empty_cache()
+    return counts, dict(seconds=secs, noise_rel_max=noise_rel)
+
+
+def torchrun(name, args):
+    """RANKS_SHARED ranks of this script (`--rank ARGS`) on the one card,
+    started by `torchrun --standalone` in a session of their own, which is
+    killed at RANK_TIMEOUT; the log goes to .chip_smoke/{name}.log. Returns
+    (standard output, seconds)."""
+    torch.cuda.empty_cache()
+    log_path = os.path.join(WORK, f"{name}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={RANKS_SHARED}", os.path.abspath(__file__), "--rank", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(out + err)
+    check(proc.returncode == 0, f"{name}: torchrun exited {proc.returncode} after "
+          f"{seconds:.0f} s; the end of its log:\n{(out + err)[-3000:]}")
+    print(f"{name}: {RANKS_SHARED} ranks on one card over gloo in {seconds:.2f} s "
+          f"(start-up included)")
+    return out, seconds
+
+
+def rank_counts(out_dir, kind):
+    """Every rank's launch counts and numbers of a `--rank KIND` run."""
+    ranks = []
+    for r in range(RANKS_SHARED):
+        with open(os.path.join(out_dir, f"{kind}.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    total = {k: sum(x["counts"][k] for x in ranks) for k in KERNELS}
+    return ranks, total
+
+
+def mesh_shared_card(dev, run_cfg):
+    """The CLI `run` at full width, two folds, over two ranks sharing the
+    card (gloo), against run_full_width's files (phase 9). Returns
+    (launch counts, numbers)."""
+    cfg_path = generate_experiment(
+        "mesh", os.path.join(ROOT, "examples", "feature_all.json"), TRAIN_OPT,
+        Q=Q, R=R, folds=2)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    out_dir = os.path.join(WORK, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    stdout, seconds = torchrun("mesh_shared_card", [
+        "cli", out_dir, "run", "--cfg", cfg_path, "--device", dev.type, "--dist-backend", "gloo"])
+    ranks, counts = rank_counts(out_dir, "cli")
+    for k in KERNELS:
+        check(counts[k] > 0, f"mesh_shared_card never launched {k}")
+    summary = json.loads([x for x in stdout.splitlines() if x.startswith("{")][-1])
+    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+        for k in ("mae", "ci_ratio", "nll"):
+            check(np.isfinite(summary[mode][k]), f"mesh_shared_card: {mode} {k} not finite")
+    slices = check_rank_slices(cfg, dev, out_dir)
+    names = sorted(x for x in os.listdir(run_cfg.exp_train_dir)
+                   if x.split("_")[1] in ("hyp", "init", "var", "flag", "num"))
+    check(names == sorted(x for x in os.listdir(cfg.exp_train_dir) if x in names)
+          and len(names) == 5 * len(recs), "mesh_shared_card: train files missing")
+    differ, worst = [], 0.0
+    for name in names:
+        want = os.path.join(run_cfg.exp_train_dir, name)
+        got = os.path.join(cfg.exp_train_dir, name)
+        with open(want, "rb") as a, open(got, "rb") as b:
+            if a.read() == b.read():
+                continue
+        differ.append(name)
+        if name.endswith(".bin"):
+            w, g = formats.read_double_bin(want), formats.read_double_bin(got)
+            worst = max(worst, float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)))
+    # the train path is not batch-invariant on the card (ROADMAP.md §C): a
+    # rank trains half a bucket, so its float32 trajectories leave the
+    # full bucket's; check_rank_slices holds the run to one device
+    # running the ranks' slices, bitwise
+    print(f"mesh_shared_card: {len(names) - len(differ)} of {len(names)} train files bitwise "
+          f"equal to run (full width)'s, which trains whole buckets; largest difference "
+          f"over the scale {worst:.3e} in {differ[:3]}")
+    noise_rel = 0.0
+    host_dir = os.path.join(WORK, "mesh_host_kernels")
+    for fold in (-1, 0, 1):
+        kernel_clustering_fold(cfg.spec(), cfg.exp_train_dir, host_dir, cfg.pans(),
+                               cfg.cv_assign(), fold, algorithm="gmm", seed=cfg.random_seed,
+                               device=dev)
+        want, wq = formats.read_mode_kernel(host_dir, fold, "gmm")
+        got, gq = formats.read_mode_kernel(cfg.exp_kernel_dir, fold, "gmm")
+        check(gq == wq and np.array_equal(got[D:], want[D:]),
+              f"mesh_shared_card: fold {fold}'s mode kernel differs beyond its noise block "
+              f"from the host path's on the run's own train files")
+        noise_rel = max(noise_rel, float(np.max(np.abs(got[:D] - want[:D]) / np.abs(want[:D]))))
+    print(f"mesh_shared_card: mode kernels equal to the host path's (`kernclust` on the "
+          f"run's train files) but for the noise block, max relative difference "
+          f"{noise_rel:.3e} (tol {MESH_NOISE_REL:g}); summary {json.dumps(summary)}")
+    check(noise_rel <= MESH_NOISE_REL, f"mesh_shared_card: noise modes {noise_rel}")
+    with open(os.path.join(cfg.exp_log_dir, "metrics.p1.jsonl")) as f:
+        check(all(json.loads(x)["process"] == 1 for x in f), "metrics.p1.jsonl: process")
+    return counts, dict(seconds=seconds, summary=summary, rank_slices=slices,
+                        files_differ_from_whole_buckets=len(differ),
+                        whole_bucket_worst=worst, noise_rel_max=noise_rel,
+                        stages=run_stage_seconds(cfg))
+
+
+def check_rank_slices(cfg, dev, out_dir):
+    """The shared-card run's train stage against this one device: every
+    bucket as train_cohort packs it, padded to a multiple of the world;
+    each rank's recorded slice (`--rank cli` records every
+    train_one_patient call of parallel/mesh.py) must be that bucket's rows
+    r m .. (r + 1) m, one device must train it to the rank's bits, and the
+    train files rank 0 wrote must hold those bits for the real rows."""
+    spec = cfg.spec()
+    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
+    inits = random_inits(cfg.random_seed, spec, cfg.bounds(), cfg.random_init_num).to(dev)
+    kw = dict(prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
+              top_iters=cfg.top_iteration_num, sub_opt_iter=cfg.iteration_num_per_update)
+    batches = pack_patients(recs, max_batch=runner.TRAIN_MAX_BATCH, device=dev)
+    ranks = [np.load(os.path.join(out_dir, f"train.rank{r}.npz")) for r in range(RANKS_SHARED)]
+    check(all(int(z["calls"]) == len(batches) for z in ranks),
+          f"mesh_shared_card: {[int(z['calls']) for z in ranks]} train calls for "
+          f"{len(batches)} buckets")
+    t0 = time.perf_counter()
+    for k, b in enumerate(batches):
+        B = len(b)
+        m = round_up(B, RANKS_SHARED) // RANKS_SHARED
+        padded = pad_batch_to(runner.batch_data(b, dev), m * RANKS_SHARED)
+        for r, z in enumerate(ranks):
+            data = PatientData(*(x[r * m:(r + 1) * m] for x in padded))
+            for name, x in zip(PatientData._fields, data):
+                check(np.array_equal(z[f"c{k}_{name}"], x.cpu().numpy()),
+                      f"bucket {k} rank {r}: the rank's {name} is not its slice")
+            res = train_one_patient(spec, data, inits, **kw)
+            got = dict(theta=res.theta, init_theta=res.init_theta, flag=res.flag,
+                       var=res.var_state.flatten())
+            for name, x in got.items():
+                check(np.array_equal(z[f"c{k}_{name}"], x.cpu().numpy()),
+                      f"bucket {k} rank {r}: one device trains the slice to other {name}")
+            for i in range(min(m, B - r * m)):
+                p = formats.train_paths(cfg.exp_train_dir, b.pans[r * m + i])
+                flag = bool(res.flag[i])
+                same = (flag == bool(int(formats.read_int_txt(p["flag"])[0])) and np.array_equal(
+                    formats.read_double_bin(p["init"]), res.init_theta[i].double().cpu().numpy()))
+                if flag:
+                    same = same and np.array_equal(
+                        formats.read_double_bin(p["hyp"]), res.theta[i].double().cpu().numpy()
+                    ) and np.array_equal(formats.read_double_bin(p["var_hyp"]),
+                                         got["var"][i].double().cpu().numpy())
+                check(same, f"{b.pans[r * m + i]}: rank 0's train files differ from rank "
+                      f"{r}'s slice")
+    seconds = time.perf_counter() - t0
+    print(f"mesh_shared_card: {len(batches)} buckets x {RANKS_SHARED} ranks' slices: the "
+          f"inputs are the buckets' rows, one device trains each to the rank's bits, and "
+          f"rank 0's {len(recs)} patients' train files hold them ({seconds:.1f} s)")
+    return dict(buckets=len(batches), seconds=seconds)
+
+
+def large_sharded_shared_card(dev):
+    """mesh_world1's row-sharded value+gradient over two ranks sharing the
+    card (gloo), two row blocks a rank (phase 9). Returns (launch counts,
+    numbers)."""
+    out_dir = os.path.join(WORK, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    _, seconds = torchrun("large_sharded_shared_card", ["large", out_dir, dev.type])
+    ranks, counts = rank_counts(out_dir, "large")
+    check(counts["chol_solve"] > 0 and counts["tri_inv"] > 0,
+          f"large_sharded_shared_card: K3/K5 launches {counts}")
+    w1 = np.load(os.path.join(WORK, "mesh_large_w1.npz"))
+    free = torch.cuda.mem_get_info(0)[0]
+    plan = hbm.large_block_plan(MESH_LARGE_N, free, Q, world=RANKS_SHARED)
+    b = MESH_LARGE_N // MESH_LARGE_BLOCKS
+    rule = hbm.large_patient_bytes(MESH_LARGE_N, b, Q, world=RANKS_SHARED)
+    out = dict(seconds=seconds, plan_world2=plan, rule_bytes=rule, ranks=[])
+    for r, rk in enumerate(ranks):
+        z = np.load(os.path.join(out_dir, f"large.rank{r}.npz"))
+        v_rel = float(np.abs(z["value"] - w1["value"]).max() / np.abs(w1["value"]).max())
+        g_err = float(np.abs(z["grad"] - w1["grad"]).max() / np.abs(w1["grad"]).max())
+        bitwise = bool(np.array_equal(z["value"], w1["value"])
+                       and np.array_equal(z["grad"], w1["grad"]))
+        print(f"large_sharded_shared_card rank {r}: value+gradient {rk['seconds']:.3f} s; "
+              f"value rel diff {v_rel:.3e} (tol {MESH_VALUE_REL:g}), gradient diff over "
+              f"the scale {g_err:.3e} (tol {MESH_GRAD_TOL:g}), bitwise equal to one rank's: "
+              f"{bitwise} (the tile cotangents are summed in one rank's order); peak device memory "
+              f"{rk['peak_bytes'] / 2**30:.3f} GiB against the rule at world 2 "
+              f"{rule / 2**30:.3f} GiB (P={MESH_LARGE_BLOCKS}, b={b}; "
+              f"large_block_plan(world=2) at {free / 2**30:.1f} GiB free: {plan})")
+        check(bool(rk["ok"]) and v_rel <= MESH_VALUE_REL and g_err <= MESH_GRAD_TOL,
+              f"large_sharded_shared_card rank {r}: value {v_rel}, gradient {g_err}")
+        out["ranks"].append(dict(rk, value_rel=v_rel, grad_err=g_err, bitwise=bitwise))
+    return counts, out
+
+
+def rank_main(argv):
+    """One rank of a shared-card phase, under torchrun (`--rank cli DIR
+    ARGS...`: the CLI with ARGS, every train_one_patient call of
+    parallel/mesh.py recorded to DIR/train.rank{r}.npz; `--rank large DIR
+    DEVICE`: the row-sharded
+    value+gradient of mesh_large_case over the ranks, gloo, on this rank's
+    DEVICE); writes DIR/{kind}.rank{r}.json with its launch counts."""
+    kind, out_dir = argv[0], argv[1]
+    rank = int(os.environ["RANK"])
+    result = {}
+    reset_launches()
+    if kind == "cli":
+        own, calls = mesh_module.train_one_patient, []
+
+        def recording(spec, data, inits, **kw):
+            res = own(spec, data, inits, **kw)
+            calls.append(dict(zip(PatientData._fields, data), theta=res.theta,
+                              init_theta=res.init_theta, flag=res.flag,
+                              var=res.var_state.flatten()))
+            return res
+
+        mesh_module.train_one_patient = recording
+        try:
+            cli(argv[2:])
+        finally:
+            mesh_module.train_one_patient = own
+        np.savez(os.path.join(out_dir, f"train.rank{rank}.npz"), calls=len(calls),
+                 **{f"c{k}_{name}": x.cpu().numpy() for k, c in enumerate(calls)
+                    for name, x in c.items()})
+    else:
+        dev = rank_device(argv[2])
+        init_distributed(backend="gloo", device=dev)
+        try:
+            mesh = cohort_mesh(dev)
+            spec, args, theta, prior = mesh_large_case(dev)
+            f = large_patient_objective(spec, MESH_LARGE_BLOCKS, *args, prior=prior, mesh=mesh)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            v, g, ok = f(theta)
+            torch.cuda.synchronize()
+            result = dict(seconds=time.perf_counter() - t0, ok=bool(ok),
+                          peak_bytes=torch.cuda.max_memory_allocated() - base)
+            np.savez(os.path.join(out_dir, f"large.rank{rank}.npz"), value=v.cpu().numpy(),
+                     grad=g.cpu().numpy())
+        finally:
+            dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{kind}.rank{rank}.json"), "w") as f:
+        json.dump(dict(counts=read_launches(), **result), f)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1832,7 +2251,7 @@ def main():
     sampler_rows = sampler_potential_and_leapfrog(cfg, dev)
     torch.cuda.empty_cache()
     phase_done("sampler potential and leapfrog")
-    samplers = run_samplers(cfg_path, cfg, dev)
+    samplers, hmc_draws = run_samplers(cfg_path, cfg, dev)
     phase_done("hmc (hmc, nuts, vi)")
 
     run_s, run_c, run_stages = run_full_width(dev)
@@ -1851,6 +2270,14 @@ def main():
     phase_done("train (large patient)")
     lg_evals = {n: large_value_and_grad(dev, n) for n in LARGE_EVAL_N}
     phase_done("large value+gradient")
+    mw_c, mesh_w1 = mesh_world1(dev, cfg, hmc_draws)
+    phase_done("mesh_world1")
+    run_cfg = ExperimentConfig.from_json(os.path.join(
+        WORK, "exp", f"run_k7_q{Q}_r{R}_p2_e0.01", "config", "exp_setup.json"))
+    ms_c, mesh_sc = mesh_shared_card(dev, run_cfg)
+    phase_done("mesh_shared_card")
+    ls_c, large_sc = large_sharded_shared_card(dev)
+    phase_done("large_sharded_shared_card")
 
     by_path = {
         name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
@@ -1858,7 +2285,10 @@ def main():
                **{f"hmc_{k}": v[1][name] for k, v in samplers.items()},
                "run_sampler": rs_c[name], "large_vs_dense": lg_c[name],
                "train_large": lt_c[name],
-               **{f"large_{n}": c[name] for n, (c, _) in lg_evals.items()}}
+               **{f"large_{n}": c[name] for n, (c, _) in lg_evals.items()},
+               **{k: c[name] for k, c in mw_c.items()},
+               "mesh_run_shared_card": ms_c[name],
+               "large_sharded_shared_card": ls_c[name]}
         for name in KERNELS
     }
     src = "medgp_tpu_torch/csrc/"
@@ -1910,6 +2340,9 @@ def main():
         "blocked_vs_dense": lg_dense, "train": lg_train,
         "value_and_grad": {n: o for n, (_, o) in lg_evals.items()},
     }}))
+    print(json.dumps({"mesh": {
+        "world1": mesh_w1, "run_shared_card": mesh_sc, "large_shared_card": large_sc,
+    }}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1918,4 +2351,6 @@ def main():
     return 0
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -8,6 +8,7 @@ fused.
     python -m medgp_tpu_torch.cli.main eval      --cfg ... --test-mode mean_w_update
     python -m medgp_tpu_torch.cli.main hmc       --cfg ... [--sampler hmc|nuts|vi]
     python -m medgp_tpu_torch.cli.main run       --cfg ... [--sampler S]  # one process
+    torchrun --nproc-per-node 4 -m medgp_tpu_torch.cli.main run --cfg ...  # 4 GPUs
 
 Counterpart of the same subcommands of ``medgp_tpu/cli/main.py``; all
 read and write the reference-format artifacts, so either package's output
@@ -16,8 +17,16 @@ drives the other's next stage. `train`, `kernclust`, `test`, `hmc` and
 `--device cpu` asks for the CPU (the kernels' plain twins). `eval` is host
 numpy. `test` runs both test modes unless `--mode` picks one. `train` and
 `run` train LMC-SM patients above the large-patient threshold
-(`--large-threshold`, default the config's) by row blocks on the same
-device. Not ported yet: several devices.
+(`--large-threshold`, default the config's) by row blocks.
+
+Under `torchrun` with more than one process, each process is one rank on
+cuda:LOCAL_RANK (or the CPU) and joins the process group over NCCL (gloo
+on the CPU, or where `--dist-backend gloo` asks for it, e.g. several ranks
+sharing one card); `train`, `test`, `hmc` and `run` then shard every
+bucket's patients over the ranks, rank 0 alone writes the files (and
+runs `kernclust`), and the others wait for its writes. `run` then takes
+each fold's log noise modes from one all-gather over the ranks
+(medgp_tpu/cli/main.py:236-266).
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
+from medgp_tpu_torch.parallel.launch import BACKENDS, init_distributed, rank_device, world_from_env
 from medgp_tpu_torch.parallel.runner import SAMPLERS, TEST_MODES
 
 log = logging.getLogger("medgp_tpu_torch")
@@ -73,9 +84,10 @@ def cmd_generate(args):
 
 
 def _device(args) -> torch.device:
-    """The device a stage runs on: the CUDA card unless `--device` names
-    another; asking for the card without one stops with a message."""
-    device = torch.device(args.device or "cuda")
+    """The device a stage runs on: this rank's CUDA card
+    (`launch.rank_device`) unless `--device` names another; asking for the
+    card without one stops with a message."""
+    device = rank_device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             f"medgp_tpu_torch {args.command}: no CUDA device "
@@ -136,20 +148,23 @@ def cmd_test(args):
 
 def cmd_kernclust(args):
     from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold
-    from medgp_tpu_torch.parallel.runner import stage_metrics
+    from medgp_tpu_torch.parallel.mesh import barrier
+    from medgp_tpu_torch.parallel.runner import mesh_or_none, stage_metrics
 
     device = _device(args)
     cfg = _load_cfg(args.cfg)
+    mesh = mesh_or_none(None, device)
     folds = [args.fold] if args.fold is not None else range(-1, cfg.cv_fold_num)
     metrics = stage_metrics(cfg)
     cv = cfg.cv_assign()
-    for fold in folds:
+    for fold in folds if mesh is None or mesh.rank == 0 else ():
         _, newQ = kernel_clustering_fold(
             cfg.spec(), cfg.exp_train_dir, cfg.exp_kernel_dir, cfg.pans(), cv,
             fold, algorithm=args.alg, seed=cfg.random_seed, metrics=metrics,
             device=device,
         )
         log.info("fold %d: %d mode mixture components", fold, newQ)
+    barrier(mesh)
 
 
 def cmd_eval(args):
@@ -190,22 +205,49 @@ def cmd_hmc(args):
     )
 
 
+def _fold_noise_modes(cfg, mesh, trained, hyps):
+    """(n_folds + 1, D) log noise modes of every fold (row f; the last row
+    is fold -1) over the ranks (medgp_tpu/cli/main.py:236-266): hypers,
+    flags and fold ids padded to a multiple of the world, each rank's
+    slice into one all-gather."""
+    from medgp_tpu_torch.parallel.mesh import local_rows, population_noise_modes_by_fold
+
+    fold_of = {p: int(f) for p, f in zip(cfg.pans(), cfg.cv_assign())}
+    P, pad = len(trained), (-len(trained)) % mesh.world
+    th = np.concatenate([hyps, np.zeros((pad, hyps.shape[1]))]).astype(np.float32)
+    fl = np.concatenate([np.ones(P), np.zeros(pad)]).astype(np.float32)
+    cv = np.concatenate([[fold_of[p] for p in trained], np.full(pad, -2)]).astype(np.int32)
+    fn = population_noise_modes_by_fold(cfg.spec(), mesh, cfg.cv_fold_num)
+    return fn(*(local_rows(mesh, torch.as_tensor(a, device=mesh.device))
+                for a in (th, fl, cv))).double().cpu().numpy()
+
+
 def cmd_run(args):
     """Fused pipeline: train [-> sampler] -> kernclust (every fold, from the
     hypers in memory) -> test in both modes -> eval of both modes. With
     `--sampler`, posterior inference runs after training and clustering
     takes each sampled patient's posterior-mean hypers in place of its MAP
     point. Files are still written at every stage boundary. One `run`
-    record in log/metrics.jsonl carries each stage's seconds."""
+    record in log/metrics.jsonl carries each stage's seconds.
+
+    Over several ranks, train, the sampler and test shard every bucket,
+    each fold's LMC-SM noise-mode block comes from one all-gather
+    (`_fold_noise_modes`), rank 0 clusters, evaluates and prints the
+    summary, and every rank waits for rank 0's files before the next stage
+    reads them."""
     from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold_in_memory
     from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.evaluation.evals import eval_cohort, summarize
+    from medgp_tpu_torch.models.params import LMCSMSpec
+    from medgp_tpu_torch.parallel.mesh import barrier
     from medgp_tpu_torch.parallel.runner import (
-        hmc_cohort, stage_metrics, test_cohort, train_cohort,
+        hmc_cohort, mesh_or_none, stage_metrics, test_cohort, train_cohort,
     )
 
     device = _device(args)
     cfg = _load_cfg(args.cfg)
+    mesh = mesh_or_none(None, device)
+    lead = mesh is None or mesh.rank == 0
     pans = cfg.pans()
     seconds = {}
     t0 = time.time()
@@ -245,12 +287,19 @@ def cmd_run(args):
     metrics = stage_metrics(cfg)
     cv = cfg.cv_assign()
     t1 = time.time()
-    for fold in range(-1, cfg.cv_fold_num):
+    noise_modes = None
+    if mesh is not None and isinstance(cfg.spec(), LMCSMSpec):
+        noise_modes = _fold_noise_modes(cfg, mesh, trained, hyps)
+        log.info("[run] noise modes over %d ranks (%d folds + all): %s",
+                 mesh.world, cfg.cv_fold_num, np.round(noise_modes, 4).tolist())
+    for fold in range(-1, cfg.cv_fold_num) if lead else ():
         kernel_clustering_fold_in_memory(
             cfg.spec(), cfg.exp_kernel_dir, trained, hyps, cv, pans, fold,
             algorithm=args.alg, seed=cfg.random_seed, metrics=metrics,
             device=device,
+            noise_mode=None if noise_modes is None else noise_modes[fold],
         )
+    barrier(mesh)
     seconds["kernclust"] = time.time() - t1
     log.info("[run] kernclust done at %.1fs", time.time() - t0)
 
@@ -260,6 +309,8 @@ def cmd_run(args):
     test_cohort(cfg, records, folds=folds, kernclust_alg=args.alg, device=device)
     seconds["test"] = time.time() - t1
     log.info("[run] test done at %.1fs", time.time() - t0)
+    if not lead:
+        return
 
     t1 = time.time()
     summary = {
@@ -271,7 +322,7 @@ def cmd_run(args):
     }
     seconds["eval"] = time.time() - t1
     metrics.write(
-        "run", device=str(device),
+        "run", device=str(device), devices=1 if mesh is None else mesh.world,
         **{f"{k}_seconds": v for k, v in seconds.items()},
         seconds=time.time() - t0,
     )
@@ -300,7 +351,14 @@ def build_parser():
     g.add_argument("--exp-prefix", default="exp_0000")
     g.set_defaults(func=cmd_generate)
 
-    device_help = "torch device (default: cuda; cpu runs the plain twins)"
+    device_help = (
+        "torch device (default: cuda, this rank's card under torchrun; cpu runs "
+        "the plain twins)"
+    )
+    backend_help = (
+        "torch.distributed backend under torchrun (default: nccl on a CUDA "
+        "device, gloo on the CPU; gloo lets several ranks share one card)"
+    )
     r = sub.add_parser("train", help="per-patient MAP training")
     r.add_argument("--cfg", required=True)
     r.add_argument("--pan", default=None, help="single patient id")
@@ -317,6 +375,7 @@ def build_parser():
         "buckets (utils/checkpoints.py)",
     )
     r.add_argument("--device", default=None, help=device_help)
+    r.add_argument("--dist-backend", default=None, choices=BACKENDS, help=backend_help)
     r.set_defaults(func=cmd_train)
 
     k = sub.add_parser("kernclust", help="population mode kernels per fold")
@@ -324,6 +383,7 @@ def build_parser():
     k.add_argument("--fold", type=int, default=None, help="default: all folds")
     k.add_argument("--alg", default="gmm")
     k.add_argument("--device", default=None, help=device_help)
+    k.add_argument("--dist-backend", default=None, choices=BACKENDS, help=backend_help)
     k.set_defaults(func=cmd_kernclust)
 
     s = sub.add_parser("test", help="online one-step-ahead imputation")
@@ -337,6 +397,7 @@ def build_parser():
         "mean_w_update, which updates the hypers online)",
     )
     s.add_argument("--device", default=None, help=device_help)
+    s.add_argument("--dist-backend", default=None, choices=BACKENDS, help=backend_help)
     s.set_defaults(func=cmd_test)
 
     e = sub.add_parser("eval", help="per-feature MAE / CI coverage / NLL")
@@ -365,6 +426,7 @@ def build_parser():
     )
     h.add_argument("--step-size", type=float, default=0.005)
     h.add_argument("--device", default=None, help=device_help)
+    h.add_argument("--dist-backend", default=None, choices=BACKENDS, help=backend_help)
     h.set_defaults(func=cmd_hmc)
 
     u = sub.add_parser("run", help="fused train[+sampler]+kernclust+test+eval")
@@ -380,6 +442,7 @@ def build_parser():
     u.add_argument("--warmup", type=int, default=200)
     u.add_argument("--samples", type=int, default=200)
     u.add_argument("--device", default=None, help=device_help)
+    u.add_argument("--dist-backend", default=None, choices=BACKENDS, help=backend_help)
     u.set_defaults(func=cmd_run)
     return p
 
@@ -387,7 +450,17 @@ def build_parser():
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_parser().parse_args(argv)
-    args.func(args)
+    # under torchrun a device stage joins the process group, and leaves it
+    # at the end if it started it
+    started = (hasattr(args, "dist_backend") and world_from_env() > 1
+               and not torch.distributed.is_initialized())
+    if started:
+        init_distributed(backend=args.dist_backend, device=_device(args))
+    try:
+        args.func(args)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

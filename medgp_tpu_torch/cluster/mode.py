@@ -34,20 +34,26 @@ def mode_kernel_lmcsm(
     cluster_num: int,
     cluster_assign: np.ndarray,
     device="cuda",
+    noise_mode: np.ndarray | None = None,
 ) -> np.ndarray:
-    """Returns the flat mode theta for an LMCSMSpec(newQ, D, R) kernel. The
-    noise block is always derived here from the hypers (the JAX package's
-    `noise_mode` argument, computed over a device mesh, belongs to the
-    multi-device path, which is not ported)."""
+    """Returns the flat mode theta for an LMCSMSpec(newQ, D, R) kernel.
+
+    `noise_mode` optionally supplies the (D,) log noise-mode block computed
+    over the ranks of a mesh (parallel/mesh.py:population_noise_modes_by_fold,
+    an all-gather and a float32 KDE); without it the block comes from the
+    hypers here, in float64 (medgp_tpu/cluster/mode.py:36-53)."""
     Q, D, R = spec.Q, spec.D, spec.R
     P = hyps.shape[0]
     newQ = int(cluster_num)
     out = np.zeros(D + newQ * (D * R + 2 + D))
 
     # noise modes (weighted; mode_estimate.py:267-279)
-    out[:D] = np.log(
-        kde_mode_batch(np.exp(hyps[:, :D]).T, weighted=True, device=device)
-    )
+    if noise_mode is not None:
+        out[:D] = np.asarray(noise_mode, np.float64)
+    else:
+        out[:D] = np.log(
+            kde_mode_batch(np.exp(hyps[:, :D]).T, weighted=True, device=device)
+        )
 
     pan_index = {p: i for i, p in enumerate(pans)}
     A_all = hyps[:, D : D + Q * D * R].reshape(P, Q, D, R)

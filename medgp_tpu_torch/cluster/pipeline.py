@@ -36,10 +36,12 @@ def cluster_kernels(
     algorithm: str = "gmm",
     seed: int = 0,
     device="cuda",
+    noise_mode: np.ndarray | None = None,
 ):
     """In-memory clustering + mode estimation: (mode_theta, newQ), with at
     most spec.Q clusters. `hyps` is (P, H) flat theta of successfully
-    trained patients."""
+    trained patients; `noise_mode` optionally carries the (D,) log
+    noise-mode block computed over a mesh (LMC-SM only)."""
     pans = np.asarray(pans)
     if isinstance(spec, SESpec):
         return mode_kernel_se(pans, hyps, device=device), 1
@@ -48,20 +50,26 @@ def cluster_kernels(
         algorithm, comp_feat, max_cluster_num=spec.Q, seed=seed,
         device=device,
     )
-    mode = mode_kernel_lmcsm if isinstance(spec, LMCSMSpec) else mode_kernel_sm
-    mode_theta = mode(
-        spec, pans, hyps, comp_pan, comp_qidx, cluster_num, cluster_assign,
-        device=device,
-    )
+    if isinstance(spec, LMCSMSpec):
+        mode_theta = mode_kernel_lmcsm(
+            spec, pans, hyps, comp_pan, comp_qidx, cluster_num, cluster_assign,
+            device=device, noise_mode=noise_mode,
+        )
+    else:
+        mode_theta = mode_kernel_sm(
+            spec, pans, hyps, comp_pan, comp_qidx, cluster_num, cluster_assign,
+            device=device,
+        )
     return mode_theta, int(cluster_num)
 
 
 def _cluster_fold(spec, kernel_dir, pans, hyps, fold, algorithm, seed,
-                  metrics, device):
+                  metrics, device, noise_mode=None):
     if len(pans) == 0:
         raise RuntimeError(f"no successfully trained patients for fold {fold}")
     mode_theta, newQ = cluster_kernels(
-        spec, pans, hyps, algorithm=algorithm, seed=seed, device=device
+        spec, pans, hyps, algorithm=algorithm, seed=seed, device=device,
+        noise_mode=noise_mode,
     )
     formats.write_mode_kernel(kernel_dir, fold, algorithm, mode_theta, newQ)
     if metrics is not None:
@@ -84,17 +92,20 @@ def kernel_clustering_fold_in_memory(
     seed: int = 0,
     metrics=None,
     device="cuda",
+    noise_mode: np.ndarray | None = None,
 ):
     """Fold clustering fed from in-memory training results. `pans`/`hyps`
     are the successfully trained patients (any order); `cv_assign` is
-    indexed by position in `all_pans`. The mode-kernel files are written
-    as the file-based stage writes them."""
+    indexed by position in `all_pans`; `noise_mode` is the fold's (D,) log
+    noise-mode block from the mesh, if any (medgp_tpu/cluster/pipeline.py:
+    67-104). The mode-kernel files are written as the file-based stage
+    writes them."""
     pans = np.asarray([str(p) for p in pans])
     fold_of = {str(p): int(f) for p, f in zip(all_pans, np.asarray(cv_assign))}
     keep = np.asarray([fold == -1 or fold_of[p] != fold for p in pans], bool)
     return _cluster_fold(
         spec, kernel_dir, pans[keep], np.asarray(hyps)[keep], fold, algorithm,
-        seed, metrics, device,
+        seed, metrics, device, noise_mode,
     )
 
 

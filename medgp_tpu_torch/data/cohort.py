@@ -81,6 +81,8 @@ def pack_patients(
     max_batch: int | None = None,
     device: torch.device | str = "cpu",
     footprint_mult: int = 1,
+    batch_multiple: int = 1,
+    free_bytes: int | None = None,
 ) -> List[PaddedBatch]:
     """Group patients into padded batches by bucketed length.
 
@@ -89,6 +91,14 @@ def pack_patients(
     the memory share its grams may take on `device`, divided by
     `footprint_mult`, the number of (n, n) grams a patient holds at once
     (the samplers: two per chain; medgp_tpu/data/cohort.py:127-142).
+
+    `batch_multiple` (the world, when sharding over ranks) promotes each
+    length bucket's remainder, its longest patients, into the next-longer
+    bucket, so that every bucket but the longest holds a multiple of it
+    and all-masked dummies pad at most that one (medgp_tpu/data/cohort.py:
+    84-125); the memory cap is then rounded down to a multiple of it.
+    `free_bytes` replaces the device's free memory in the cap (over
+    several ranks, the least of theirs, so that all pack alike).
     """
     if not records:
         return []
@@ -100,10 +110,24 @@ def pack_patients(
                 buckets.setdefault(e, []).append(r)
                 break
 
+    if batch_multiple > 1:
+        order = sorted(buckets)
+        for i, e in enumerate(order[:-1]):
+            group = buckets[e]
+            rem = len(group) % batch_multiple
+            if rem:
+                group.sort(key=lambda r: r.n_obs)
+                buckets[order[i + 1]] = group[len(group) - rem:] + buckets[order[i + 1]]
+                del group[len(group) - rem:]
+                if not group:
+                    del buckets[e]
+
     batches = []
     for n_max in sorted(buckets):
         group = buckets[n_max]
-        cap = max(1, bucket_cap(n_max, device) // max(footprint_mult, 1))
+        cap = max(1, bucket_cap(n_max, device, free_bytes) // max(footprint_mult, 1))
+        if batch_multiple > 1:
+            cap = max(batch_multiple, cap - cap % batch_multiple)
         eff = cap if max_batch is None else min(max_batch, cap)
         for s in range(0, len(group), eff):
             chunk = group[s : s + eff]

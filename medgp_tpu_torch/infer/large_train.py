@@ -7,9 +7,12 @@ through the padded buckets (one (n, n) float32 gram at n = 100,000 is
 40 GB), so the runner routes it here:
 
   * the observation axis is padded to P row blocks of b rows
-    (`utils/hbm.py:large_block_plan`, from the device's free memory), and
-    every evaluation walks the blocks on the one device
-    (`parallel/mesh.py`), holding L's lower block triangle only;
+    (`utils/hbm.py:large_block_plan`, from the device's free memory, the
+    least of any rank's over a mesh), and
+    every evaluation walks the blocks (`parallel/mesh.py`), holding L's
+    lower block triangle only: on one device, or row-sharded over the
+    ranks of a mesh, where every rank runs this function in step on the
+    whole patient and holds its own row blocks;
   * the restart screen evaluates cfg.large_patient_restarts inits one
     after another (`large_patient_screen`);
   * SCG, or hier-gamma varEM through its `objective_factory` hook, run
@@ -29,7 +32,8 @@ from medgp_tpu_torch.infer.varem import varem_train
 from medgp_tpu_torch.models.gp import PatientData
 from medgp_tpu_torch.models.params import LMCSMSpec
 from medgp_tpu_torch.parallel.mesh import (
-    large_patient_nlml_diff, large_patient_objective, large_patient_screen,
+    CohortMesh, large_patient_nlml_diff, large_patient_objective, large_patient_screen,
+    min_free_bytes,
 )
 from medgp_tpu_torch.utils.hbm import device_bytes, large_block_plan
 
@@ -63,19 +67,26 @@ def train_one_large_patient(
     max_retries: int = 10,
     blocks: int | None = None,
     device: torch.device | str = "cuda",
+    mesh: CohortMesh | None = None,
 ) -> dict:
-    """Train one raw (unpadded) patient on `device` by row blocks.
+    """Train one raw (unpadded) patient on `device` by row blocks, over the
+    ranks of `mesh` when one is given (each rank calls this with the same
+    arguments and gets the same result; `device` is the rank's).
 
     `inits` is the (S, H) restart set to screen (the caller slices the
     cohort's shared restarts down to cfg.large_patient_restarts);
-    `blocks` fixes the number of row blocks P, else `large_block_plan`
-    takes it from the device's free memory. Returns the result dict
+    `blocks` fixes the number of row blocks P (a multiple of the world),
+    else `large_block_plan` takes it from the device's free memory, over
+    a mesh the least of any rank's, so that every rank plans the same
+    (P, b). Returns the result dict
     `train_cohort` builds per patient: theta, init_theta, flag, loss,
     n_obs and var_state ([psi | delta | phi | tau], or None without the
-    hier-gamma prior)."""
+    hier-gamma prior), and the plan's blocks P and block_rows b."""
     device = torch.device(device)
     n = len(t)
-    P, b, n_pad = large_block_plan(n, device_bytes(device), spec.Q, blocks)
+    world = 1 if mesh is None else mesh.world
+    free = device_bytes(device) if mesh is None else min_free_bytes(mesh)
+    P, b, n_pad = large_block_plan(n, free, spec.Q, blocks, world)
     padded = pad_observations(t, y, meta, n_pad)
     args = tuple(torch.as_tensor(a, device=device) for a in padded)
 
@@ -83,18 +94,18 @@ def train_one_large_patient(
     counts = np.bincount(np.asarray(meta), minlength=spec.D)
     quality = bool((counts >= 2).all()) and n > 2
 
-    screen = large_patient_screen(spec, P, max_retries)
+    screen = large_patient_screen(spec, P, max_retries, mesh)
     inits = inits.to(device=device, dtype=torch.float32)
     vals, _ = screen(inits, *args)
     values = vals.double().cpu().numpy()
     screen_ok = bool(np.isfinite(values).any())
     theta0 = inits[int(np.argmin(values))]
 
-    base = large_patient_nlml_diff(spec, P, max_retries)
+    base = large_patient_nlml_diff(spec, P, max_retries, mesh)
 
     def factory(prior):
         return large_patient_objective(
-            spec, P, *args, prior=prior, max_retries=max_retries, base=base,
+            spec, P, *args, prior=prior, max_retries=max_retries, base=base, mesh=mesh,
         )
 
     var_flat = None
@@ -120,4 +131,6 @@ def train_one_large_patient(
         loss=loss if flag else float("inf"),
         n_obs=n,
         var_state=var_flat,
+        blocks=P,
+        block_rows=b,
     )

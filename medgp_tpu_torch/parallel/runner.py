@@ -3,11 +3,16 @@
 Counterpart of ``medgp_tpu/parallel/runner.py`` (`train_cohort`,
 `test_cohort`, `hmc_cohort`, `obs_output_order`, `stage_metrics`,
 `_test_prior`). Each padded bucket of patients runs as one batched
-`train_one_patient`, `online_impute` or sampler call on one device. The
-TPU-only parts (pow-2 batch padding to bound recompiles, the device mesh,
-the explicit compile step) have no counterpart here. LMC-SM patients above
-the large-patient threshold train one at a time by row blocks
-(`infer/large_train.py`), on the same one device.
+`train_one_patient`, `online_impute` or sampler call. When the
+`torch.distributed` world has more than one rank (or the caller passes
+use_mesh=True), every bucket is padded to a multiple of the world with
+all-masked dummies and sharded over the ranks (parallel/mesh.py): each
+rank runs its slice on its device, the results are all-gathered to every
+rank, rank 0 alone writes the files, and every rank waits for the writes
+before the function returns. LMC-SM patients above the large-patient
+threshold train one at a time by row blocks (`infer/large_train.py`),
+row-sharded over the same ranks. The TPU-only parts (pow-2 batch padding
+to bound recompiles, the explicit compile step) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from medgp_tpu_torch.config.experiment import ExperimentConfig
 from medgp_tpu_torch.data import formats
@@ -40,6 +46,10 @@ from medgp_tpu_torch.models.gp import PatientData
 from medgp_tpu_torch.models.params import KernelSpec, LMCSMSpec, theta_from_numpy
 from medgp_tpu_torch.models.priors import (
     PriorSpec, clamp_a_elements, empty_prior, hier_gamma_prior,
+)
+from medgp_tpu_torch.parallel.mesh import (
+    CohortMesh, barrier, cohort_mesh, min_free_bytes, pad_batch_to, round_up,
+    sharded_sampler_step, sharded_test_step, sharded_train_step, take_rows,
 )
 from medgp_tpu_torch.utils.checkpoints import CohortCheckpointer
 from medgp_tpu_torch.utils.hbm import train_batch_cap
@@ -79,6 +89,31 @@ def batch_data(b: PaddedBatch, device: torch.device) -> PatientData:
     )
 
 
+def mesh_or_none(use_mesh: Optional[bool], device: torch.device) -> Optional[CohortMesh]:
+    """The mesh policy (medgp_tpu/parallel/runner.py:64-71): shard over the
+    `torch.distributed` world when it has more than one rank
+    (use_mesh=None), or as the caller forces; this rank runs on `device`."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    on = use_mesh if use_mesh is not None else world > 1
+    return cohort_mesh(device) if on else None
+
+
+def _world(mesh: Optional[CohortMesh]) -> int:
+    return 1 if mesh is None else mesh.world
+
+
+def _plan_bytes(mesh: Optional[CohortMesh]) -> Optional[int]:
+    """The free bytes the bucket caps plan with: over a mesh the least of
+    any rank's (`min_free_bytes`), so every rank forms the same buckets;
+    without one None, and each cap reads the device when it is asked."""
+    return None if mesh is None else min_free_bytes(mesh)
+
+
+def _writes(mesh: Optional[CohortMesh]) -> bool:
+    """Rank 0 alone writes the reference artifacts."""
+    return mesh is None or mesh.rank == 0
+
+
 # --------------------------------------------------------------------------
 # training
 # --------------------------------------------------------------------------
@@ -90,16 +125,20 @@ def bucket_key(pans: Sequence[str]) -> np.ndarray:
     return np.frombuffer(h, np.int64)
 
 
-def _train_bucket(cfg, spec, b: PaddedBatch, bidx, inits, device, metrics):
-    """Train one bucket; returns host (theta, init_theta, flags, losses,
-    n_obs, var_flat or None) and writes its `train` metrics record."""
+def _train_bucket(cfg, spec, b: PaddedBatch, bidx, inits, device, metrics, mesh):
+    """Train one bucket (over the mesh, padded to a multiple of the world
+    and sharded); returns host (theta, init_theta, flags, losses, n_obs,
+    var_flat or None) of its patients and writes its `train` metrics
+    record."""
+    kw = dict(prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
+              top_iters=cfg.top_iteration_num, sub_opt_iter=cfg.iteration_num_per_update)
+    B = len(b)
     t0 = time.perf_counter()
-    res = train_one_patient(
-        spec, batch_data(b, device), inits,
-        prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
-        top_iters=cfg.top_iteration_num,
-        sub_opt_iter=cfg.iteration_num_per_update,
-    )
+    if mesh is None:
+        res = train_one_patient(spec, batch_data(b, device), inits, **kw)
+    else:
+        step = sharded_train_step(spec, mesh, inits, **kw)
+        res = take_rows(step(pad_batch_to(batch_data(b, device), round_up(B, mesh.world))), B)
     theta = res.theta.double().cpu().numpy()  # waits for the device
     dt = time.perf_counter() - t0
     init_theta = res.init_theta.double().cpu().numpy()
@@ -112,12 +151,12 @@ def _train_bucket(cfg, spec, b: PaddedBatch, bidx, inits, device, metrics):
         if cfg.prior_index == 2 else None
     )
     log.info(
-        "trained bucket n_max=%d B=%d on %s in %.2fs (%.2f patients/s, "
+        "trained bucket n_max=%d B=%d on %d device(s) (%s) in %.2fs (%.2f patients/s, "
         "%d objective+gradient evaluations)",
-        b.n_max, len(b), device, dt, len(b) / dt, evals,
+        b.n_max, len(b), _world(mesh), device, dt, len(b) / dt, evals,
     )
     metrics.write(
-        "train", bucket=bidx, n_max=b.n_max, batch=len(b), devices=1,
+        "train", bucket=bidx, n_max=b.n_max, batch=len(b), devices=_world(mesh),
         device=str(device), seconds=dt, patients_per_sec=len(b) / dt,
         evaluations=evals, evaluations_per_sec=evals / dt, nlml=losses,
         trained=int(flags.sum()),
@@ -134,10 +173,20 @@ def train_cohort(
     ckpt_dir: Optional[str] = None,
     large_threshold: Optional[int] = None,
     device: torch.device | str = "cuda",
+    use_mesh: Optional[bool] = None,
 ) -> Dict[str, dict]:
     """Train every patient; returns {pan: result dict} and optionally writes
     the reference train artifacts (train_hyp_*, train_init_hyp_*,
     train_var_hyp_*, train_num_*, train_flag_*).
+
+    Over a mesh (`mesh_or_none(use_mesh)`) each bucket is padded to a
+    multiple of the world with all-masked dummies and sharded over the
+    ranks (`max_batch` rounded up to a multiple of it), each large patient
+    is row-sharded, and every record carries devices=W
+    (medgp_tpu/parallel/runner.py:186-240, 350-380). Unlike the JAX
+    runner, the buckets are one rank's: no remainder is promoted into a
+    longer bucket, where its padded length, and so its float32 bits,
+    would change.
 
     The restart set is shared by all patients, as in the reference, where
     every per-patient process seeds `srand(random_seed)` identically
@@ -154,7 +203,7 @@ def train_cohort(
     default cfg.large_patient_threshold) train after the buckets, one at a
     time, by row blocks (`train_one_large_patient`, from the first
     cfg.large_patient_restarts restarts), each with a `train_large` record
-    (pan, n_obs, devices, seconds, nlml, trained); checkpoints stay per
+    (pan, n_obs, devices, blocks, block_rows, seconds, nlml, trained); checkpoints stay per
     bucket. SE and SM patients above it train in ordinary buckets, as in
     the JAX package (medgp_tpu/parallel/runner.py:189-208, 355-386)."""
     spec = cfg.spec()
@@ -164,29 +213,32 @@ def train_cohort(
         large = [r for r in records if r.n_obs > thr]
         records = [r for r in records if r.n_obs <= thr]
     device = torch.device(device)
+    mesh = mesh_or_none(use_mesh, device)
+    write = write and _writes(mesh)
     S = n_restarts or cfg.random_init_num
     inits = random_inits(cfg.random_seed, spec, cfg.bounds(), S).to(device)
     metrics = stage_metrics(cfg)
     out: Dict[str, dict] = {}
     if records:
         _train_buckets(cfg, spec, records, inits, max_batch, ckpt_dir, device,
-                       metrics, write, out)
+                       metrics, write, out, mesh)
     for rec in large:
         t0 = time.perf_counter()
         res = train_one_large_patient(
             spec, rec.t, rec.y, rec.meta, inits[:cfg.large_patient_restarts],
             prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
             top_iters=cfg.top_iteration_num,
-            sub_opt_iter=cfg.iteration_num_per_update, device=device,
+            sub_opt_iter=cfg.iteration_num_per_update, device=device, mesh=mesh,
         )
         dt = time.perf_counter() - t0
         log.info(
-            "trained large patient %s (n=%d, by row blocks on %s) in %.1fs: "
-            "flag=%s loss=%.3f", rec.pan, rec.n_obs, device, dt, res["flag"],
-            res["loss"],
+            "trained large patient %s (n=%d, by row blocks over %d device(s)) in "
+            "%.1fs: flag=%s loss=%.3f", rec.pan, rec.n_obs, _world(mesh), dt,
+            res["flag"], res["loss"],
         )
         metrics.write(
-            "train_large", pan=rec.pan, n_obs=rec.n_obs, devices=1,
+            "train_large", pan=rec.pan, n_obs=rec.n_obs, devices=_world(mesh),
+            blocks=res["blocks"], block_rows=res["block_rows"],
             seconds=dt, nlml=res["loss"], trained=int(res["flag"]),
         )
         out[rec.pan] = res
@@ -195,17 +247,23 @@ def train_cohort(
                 cfg.exp_train_dir, rec.pan, res["theta"], res["init_theta"],
                 res["var_state"], res["flag"], res["n_obs"],
             )
+    barrier(mesh)
     return out
 
 
 def _train_buckets(cfg, spec, records, inits, max_batch, ckpt_dir, device,
-                   metrics, write, out):
+                   metrics, write, out, mesh):
     """The bucketed half of `train_cohort`: fills `out` and writes the
-    train files of every bucket, trained or restored from `ckpt_dir`."""
+    train files of every bucket, trained or restored from `ckpt_dir` (every
+    rank reads the checkpoint, rank 0 writes it)."""
+    W = _world(mesh)
+    free = _plan_bytes(mesh)
     n_top = bucket_edges([r.n_obs for r in records])[-1]
+    # one rank's buckets (no remainder promoted): each patient keeps its
+    # padded length, so a sharded run repeats one rank's bits
     batches = pack_patients(
-        records, max_batch=min(max_batch, train_batch_cap(n_top, device)),
-        device=device,
+        records, max_batch=min(round_up(max_batch, W), W * train_batch_cap(n_top, device, free)),
+        device=device, free_bytes=free,
     )
     ckpt = CohortCheckpointer(ckpt_dir) if ckpt_dir else None
     for bidx, b in enumerate(batches):
@@ -221,9 +279,9 @@ def _train_buckets(cfg, spec, records, inits, max_batch, ckpt_dir, device,
             nobs, var_flat = saved["n_obs"], saved.get("var_flat")
         else:
             theta, init_theta, flags, losses, nobs, var_flat = _train_bucket(
-                cfg, spec, b, bidx, inits, device, metrics
+                cfg, spec, b, bidx, inits, device, metrics, mesh
             )
-            if ckpt is not None:
+            if ckpt is not None and _writes(mesh):
                 ckpt.save_bucket(bidx, dict(
                     key=key, theta=theta, init_theta=init_theta,
                     flag=flags.astype(np.int8), loss=losses, n_obs=nobs,
@@ -265,10 +323,17 @@ def hmc_cohort(
     max_batch: int = 32,
     large_threshold: Optional[int] = None,
     device: torch.device | str = "cuda",
+    use_mesh: Optional[bool] = None,
 ) -> Dict[str, dict]:
     """Posterior inference for every trained patient, started at its MAP
-    hypers (train_hyp_*.bin), on one device (medgp_tpu/parallel/runner.py:
-    394-635). `sampler` is "hmc" (jittered trajectories, `num_leapfrog`),
+    hypers (train_hyp_*.bin) (medgp_tpu/parallel/runner.py:394-635), on
+    one device or sharded over the ranks of the mesh as `train_cohort`
+    shards (runner.py:701-770 there): each rank samples its slice of every
+    bucket with its own generator, seeded `seed + rank`, so one rank's
+    draws are those of a run without a mesh. The draws depend on the world
+    anyway, so here remainders are promoted into the next-longer bucket
+    (`pack_patients(batch_multiple=)`), as the JAX runner does, which
+    saves dummy chains. `sampler` is "hmc" (jittered trajectories, `num_leapfrog`),
     "nuts" (adaptive trajectories, `max_depth`) or "vi" (mean-field ADVI,
     one chain: `num_warmup` optimization steps, `num_samples` draws from
     the fitted q). The hier-gamma prior applies to LMC-SM experiments with
@@ -299,7 +364,10 @@ def hmc_cohort(
     )
     pans, hyps = formats.read_train_kernels(cfg.exp_train_dir, [r.pan for r in records])
     by_pan = dict(zip(pans, hyps))
-    gen = torch.Generator(device=device).manual_seed(seed)
+    mesh = mesh_or_none(use_mesh, device)
+    write = write and _writes(mesh)
+    W = _world(mesh)
+    gen = torch.Generator(device=device).manual_seed(seed + (0 if mesh is None else mesh.rank))
     metrics = stage_metrics(cfg)
 
     thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
@@ -321,8 +389,30 @@ def hmc_cohort(
     trained = [r for r in records if r.pan in by_pan and 0 < r.n_obs <= thr]
     chains = 1 if sampler == "vi" else num_chains
     batches = pack_patients(
-        trained, max_batch=max_batch, device=device, footprint_mult=2 * chains,
+        trained, max_batch=round_up(max_batch, W), device=device,
+        footprint_mult=2 * chains, batch_multiple=W, free_bytes=_plan_bytes(mesh),
     )
+
+    def run_one(theta0, t, y, meta, mask, g):
+        data = PatientData(t, y, meta, mask)
+        if sampler == "vi":
+            return vi_patient(
+                spec, data, theta0, g, prior=prior,
+                num_steps=num_warmup, num_samples=num_samples,
+            )
+        if sampler == "nuts":
+            return nuts_patient(
+                spec, data, theta0, g, prior=prior, num_chains=num_chains,
+                num_warmup=num_warmup, num_samples=num_samples,
+                init_step_size=init_step_size, max_depth=max_depth,
+            )
+        return hmc_patient(
+            spec, data, theta0, g, prior=prior, num_chains=num_chains,
+            num_warmup=num_warmup, num_samples=num_samples,
+            init_step_size=init_step_size, num_leapfrog=num_leapfrog,
+        )
+
+    run_bucket = run_one if mesh is None else sharded_sampler_step(run_one, mesh)
     prefix = "vi" if sampler == "vi" else "hmc"
     for b in batches:
         B = len(b)
@@ -330,30 +420,18 @@ def hmc_cohort(
             np.stack([by_pan[p] for p in b.pans]).astype(np.float32), device=device
         )
         data = batch_data(b, device)
+        if mesh is not None:
+            Bp = round_up(B, W)
+            data = pad_batch_to(data, Bp)
+            theta0 = torch.cat([theta0, theta0.new_zeros((Bp - B, theta0.shape[1]))])
         t0 = time.perf_counter()
-        if sampler == "vi":
-            res = vi_patient(
-                spec, data, theta0, gen, prior=prior,
-                num_steps=num_warmup, num_samples=num_samples,
-            )
-        elif sampler == "nuts":
-            res = nuts_patient(
-                spec, data, theta0, gen, prior=prior, num_chains=num_chains,
-                num_warmup=num_warmup, num_samples=num_samples,
-                init_step_size=init_step_size, max_depth=max_depth,
-            )
-        else:
-            res = hmc_patient(
-                spec, data, theta0, gen, prior=prior, num_chains=num_chains,
-                num_warmup=num_warmup, num_samples=num_samples,
-                init_step_size=init_step_size, num_leapfrog=num_leapfrog,
-            )
+        res = take_rows(run_bucket(theta0, *data, gen), B)
         samples_all = res.samples.cpu().numpy()  # waits for the device
         dt = time.perf_counter() - t0
         log.info(
             "%s bucket B=%d n_max=%d on %s: %d chains x %d samples/patient in "
             "%.1fs (%.1f samples/s)",
-            sampler, B, b.n_max, device, chains, num_samples, dt,
+            sampler, B, b.n_max, f"{W} device(s) ({device})", chains, num_samples, dt,
             B * chains * num_samples / dt,
         )
         if sampler == "vi":
@@ -387,7 +465,7 @@ def hmc_cohort(
                 [invariant_posterior_mean(spec, samples_all[i]) for i in range(B)]
             ).astype(samples_all.dtype)
         metrics.write(
-            sampler, n_max=b.n_max, batch=B, devices=1, device=str(device),
+            sampler, n_max=b.n_max, batch=B, devices=W, device=str(device),
             seconds=dt, samples_per_sec=B * chains * num_samples / dt,
             **diag_scalars,
         )
@@ -408,6 +486,7 @@ def hmc_cohort(
                     os.path.join(cfg.exp_train_dir, f"train_{prefix}_samples_{pan}.npz"),
                     samples=samples_all[i], **diags_all[i],
                 )
+    barrier(mesh)
     return out
 
 
@@ -435,18 +514,29 @@ def impute_bucket(
     prior: Optional[PriorSpec] = None,
     learn_rate: float = 1e-5,
     momentum: float = 0.9,
+    mesh: Optional[CohortMesh] = None,
 ) -> OnlineResult:
     """`online_impute` of one padded bucket, with its unique timestamps
-    padded to the bucket length."""
-    ut = np.zeros((len(b), b.n_max), np.float32)
-    uv = np.zeros((len(b), b.n_max), bool)
-    for i in range(len(b)):
+    padded to the bucket length; over a mesh the bucket is padded to a
+    multiple of the world and sharded (`sharded_test_step`)."""
+    B = len(b)
+    Bp = round_up(B, _world(mesh))
+    ut = np.zeros((Bp, b.n_max), np.float32)
+    uv = np.zeros((Bp, b.n_max), bool)
+    for i in range(B):
         ut[i], uv[i] = unique_times(b.t[i], b.mask[i], pad_to=b.n_max)
-    return online_impute(
-        spec, theta, batch_data(b, device),
-        torch.as_tensor(ut, device=device), torch.as_tensor(uv, device=device),
-        update=update, prior=prior, learn_rate=learn_rate, momentum=momentum,
-    )
+
+    def run_one(th, pr, t, y, meta, mask, u_t, u_v):
+        return online_impute(
+            spec, th, PatientData(t, y, meta, mask), u_t, u_v,
+            update=update, prior=pr, learn_rate=learn_rate, momentum=momentum,
+        )
+
+    data = pad_batch_to(batch_data(b, device), Bp)
+    run = run_one if mesh is None else sharded_test_step(run_one, mesh, n_rep_args=2)
+    res = run(theta, prior, *data, torch.as_tensor(ut, device=device),
+              torch.as_tensor(uv, device=device))
+    return take_rows(res, B)
 
 
 def test_cohort(
@@ -456,13 +546,18 @@ def test_cohort(
     kernclust_alg: str = "gmm",
     modes=TEST_MODES,
     device: torch.device | str = "cuda",
+    use_mesh: Optional[bool] = None,
 ) -> Dict[str, dict]:
-    """Online imputation for every patient with its fold's mode kernel.
+    """Online imputation for every patient with its fold's mode kernel;
+    returns {pan: {mode: result dict}} and writes the test files.
 
     `folds[i]` selects kernel/fold{f}/ for records[i]; None uses fold -1
     ("all"). `mean_w_update` updates each patient's hypers online under
     the test prior (A-elements that are zero in the mode kernel stay
-    clamped) with the experiment's learning rate and momentum.
+    clamped) with the experiment's learning rate and momentum. Over a
+    mesh every bucket is sharded as `train_cohort` shards
+    (medgp_tpu/parallel/runner.py:471-525), and every `test` record
+    carries devices=W.
 
     etime keeps the JAX package's meaning: the bucket's wall time,
     transfers and synchronisation included, divided by its predictions.
@@ -471,6 +566,10 @@ def test_cohort(
     if unknown:
         raise ValueError(f"unknown test modes {unknown}; expected {TEST_MODES}")
     device = torch.device(device)
+    mesh = mesh_or_none(use_mesh, device)
+    W = _world(mesh)
+    write = _writes(mesh)
+    free = _plan_bytes(mesh)
     feature_list = cfg.feature_list
     out: Dict[str, dict] = {}
     metrics = stage_metrics(cfg)
@@ -489,7 +588,7 @@ def test_cohort(
         for rec in sel:
             if rec.n_obs == 0:
                 out[rec.pan] = {m: dict(flag=False) for m in modes}
-                for m in modes:
+                for m in modes if write else ():
                     formats.write_test_result(
                         cfg.exp_test_dir, m, rec.pan,
                         np.zeros(0, int), np.zeros(0), np.zeros(0),
@@ -497,8 +596,8 @@ def test_cohort(
                     )
 
         batches = pack_patients(
-            [r for r in sel if r.n_obs > 0], max_batch=MAX_BATCH,
-            device=device,
+            [r for r in sel if r.n_obs > 0], max_batch=round_up(MAX_BATCH, W), device=device,
+            free_bytes=free,
         )
         for b in batches:
             total_obs = int(np.sum(b.mask))
@@ -508,7 +607,7 @@ def test_cohort(
                 res = impute_bucket(
                     spec, theta, b, device, update=m == "mean_w_update",
                     prior=prior, learn_rate=cfg.online_learn_rate,
-                    momentum=cfg.online_momentum,
+                    momentum=cfg.online_momentum, mesh=mesh,
                 )
                 res_by_mode[m] = OnlineResult(
                     *(x.cpu() for x in res)  # waits for the device
@@ -516,12 +615,12 @@ def test_cohort(
                 dt = time.perf_counter() - t0
                 etime_by_mode[m] = dt / max(total_obs, 1)
                 log.info(
-                    "tested bucket fold=%s mode=%s n_max=%d B=%d on %s in %.2fs",
-                    fold, m, b.n_max, len(b), device, dt,
+                    "tested bucket fold=%s mode=%s n_max=%d B=%d on %d device(s) (%s) "
+                    "in %.2fs", fold, m, b.n_max, len(b), W, device, dt,
                 )
                 metrics.write(
                     "test", fold=int(fold), mode=m, n_max=b.n_max,
-                    batch=len(b), devices=1, device=str(device), seconds=dt,
+                    batch=len(b), devices=W, device=str(device), seconds=dt,
                     predictions=total_obs,
                     sec_per_prediction=etime_by_mode[m],
                 )
@@ -542,9 +641,11 @@ def test_cohort(
                         flag=True, pred=pred, error=err, ci=ci, feature=feat,
                         etime=etime, var=pvar,
                     )
-                    formats.write_test_result(
-                        cfg.exp_test_dir, m, pan,
-                        feat, pred, err, ci, etime, flag=True, var=pvar,
-                    )
+                    if write:
+                        formats.write_test_result(
+                            cfg.exp_test_dir, m, pan,
+                            feat, pred, err, ci, etime, flag=True, var=pvar,
+                        )
                 out[pan] = entry
+    barrier(mesh)
     return out

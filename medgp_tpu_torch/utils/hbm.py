@@ -23,7 +23,11 @@ the (n, n) float32 arrays live per system at its stage's peak:
     `train_batch_cap(n)` = free / 4 / (6 * 4 n^2) patients.
 
 The rest is left to PyTorch's caching allocator and to the kernels'
-other outputs. A large patient (parallel/mesh.py) has its own plan,
+other outputs. Over several ranks the caps that decide a bucket's size
+(`bucket_cap`, `train_batch_cap`) and the large patient's blocks take the
+least free memory of any rank (`parallel/mesh.py:min_free_bytes`), so
+that every rank plans the same shapes; the chunk caps split a rank's own
+slice and read its own device. A large patient (parallel/mesh.py) has its own plan,
 `large_block_plan`, from the rule in its docstring. Host (CPU) runs use
 the plain PyTorch versions of the kernels and a fixed budget of
 CPU_BUDGET_BYTES.
@@ -52,14 +56,16 @@ def device_bytes(device: torch.device | str) -> int:
     return CPU_BUDGET_BYTES
 
 
-def _systems(device, share: int, buffers: int, n: int) -> int:
+def _systems(device, share: int, buffers: int, n: int, free: int | None = None) -> int:
     per = buffers * 4 * n * n
-    return max(1, device_bytes(device) // share // max(per, 1))
+    free = device_bytes(device) if free is None else free
+    return max(1, free // share // max(per, 1))
 
 
-def bucket_cap(n_max: int, device: torch.device | str) -> int:
-    """Largest batch of one n_max bucket whose grams fit their share."""
-    return _systems(device, GRAM_SHARE, 1, n_max)
+def bucket_cap(n_max: int, device: torch.device | str, free: int | None = None) -> int:
+    """Largest batch of one n_max bucket whose grams fit their share of
+    `free` bytes (default: the device's free memory now)."""
+    return _systems(device, GRAM_SHARE, 1, n_max, free)
 
 
 def test_chunk_pairs(n: int, device: torch.device | str) -> int:
@@ -72,9 +78,10 @@ def screen_chunk_systems(n: int, device: torch.device | str) -> int:
     return _systems(device, SCREEN_SHARE, SCREEN_BUFFERS_PER_SYSTEM, n)
 
 
-def train_batch_cap(n: int, device: torch.device | str) -> int:
-    """Patients per train bucket at length n."""
-    return _systems(device, TRAIN_SHARE, TRAIN_BUFFERS_PER_PATIENT, n)
+def train_batch_cap(n: int, device: torch.device | str, free: int | None = None) -> int:
+    """Patients per train bucket at length n (of `free` bytes, as
+    `bucket_cap`)."""
+    return _systems(device, TRAIN_SHARE, TRAIN_BUFFERS_PER_PATIENT, n, free)
 
 
 LARGE_BLOCK_MAX = 4096  # the largest n at which K3 and K5 were held and timed
@@ -92,32 +99,46 @@ LARGE_WORKSPACES = 8
 # distance, the time differences and the gradient's temporaries.
 LARGE_TILE_BUFFERS_PER_COMPONENT = 5
 LARGE_TILE_BUFFERS_SHARED = 8
+# over several ranks, (n, b) buffers of the block-column all-gather (the
+# rank's pieces, the gathered parts and their concatenation, the reordered
+# copy) and the received row block of the backward
+LARGE_EXCHANGE_WORKSPACES = 5
 
 
-def large_patient_bytes(n_pad: int, b: int, components: int) -> int:
-    """Device bytes of one value+gradient of a padded large patient of
-    n_pad = P b rows (parallel/mesh.py), all float32: L's lower block
-    triangle, n_pad (n_pad + b) / 2 values; the P diagonal-block
-    inverses, P b^2; LARGE_WORKSPACES (n_pad, b) workspaces; and the
-    gram tile's autograd buffers, (LARGE_TILE_BUFFERS_PER_COMPONENT *
-    components + LARGE_TILE_BUFFERS_SHARED) (b, b) tiles."""
+def large_patient_bytes(n_pad: int, b: int, components: int, world: int = 1) -> int:
+    """Device bytes on one rank of one value+gradient of a padded large
+    patient of n_pad = P b rows row-sharded over `world` ranks
+    (parallel/mesh.py), all float32: the rank's row blocks of L's lower
+    block triangle, at most n_pad (n_pad / world + b) / 2 values (rank
+    world - 1 holds blocks world - 1, 2 world - 1, ...); the P
+    diagonal-block inverses, P b^2; LARGE_WORKSPACES (n_pad, b) workspaces,
+    LARGE_EXCHANGE_WORKSPACES more over several ranks; and the gram tile's
+    autograd buffers, (LARGE_TILE_BUFFERS_PER_COMPONENT * components +
+    LARGE_TILE_BUFFERS_SHARED) (b, b) tiles. At world 1 L takes
+    n_pad (n_pad + b) / 2 values."""
     P = n_pad // b
     tiles = LARGE_TILE_BUFFERS_PER_COMPONENT * components + LARGE_TILE_BUFFERS_SHARED
-    return 4 * (n_pad * (n_pad + b) // 2 + P * b * b + LARGE_WORKSPACES * n_pad * b
+    work = LARGE_WORKSPACES + (LARGE_EXCHANGE_WORKSPACES if world > 1 else 0)
+    return 4 * (n_pad * (n_pad // world + b) // 2 + P * b * b + work * n_pad * b
                 + tiles * b * b)
 
 
-def large_block_plan(n: int, free_bytes: int, components: int = 5, blocks=None):
+def large_block_plan(n: int, free_bytes: int, components: int = 5, blocks=None,
+                     world: int = 1):
     """(P, b, n_pad) for a large patient of n observations with `components`
-    LMC-SM components: P row blocks of b rows, b a multiple of K3's 32-wide
-    block and at most LARGE_BLOCK_MAX, n_pad = P b >= n.
+    LMC-SM components, row-sharded over `world` ranks with `free_bytes`
+    free on each: P row blocks of b rows, P a multiple of `world`, b a
+    multiple of K3's 32-wide block and at most LARGE_BLOCK_MAX, n_pad =
+    P b >= n.
 
     For the largest b_max <= LARGE_BLOCK_MAX (a multiple of 32) that fits,
-    P = ceil(n / b_max), b = round_up(ceil(n / P), 32) and n_pad = P b;
-    it fits when `large_patient_bytes(n_pad, b, components)` is within
-    LARGE_SHARE of `free_bytes`. So L takes n_pad (n_pad + b) / 2 values
-    and every workspace O(n b). `blocks` fixes P instead (tests, parity
-    checks). Raises when even b = 32 does not fit."""
+    P = ceil(n / b_max) rounded up to a multiple of `world`, b =
+    round_up(ceil(n / P), 32) and n_pad = P b; it fits when
+    `large_patient_bytes(n_pad, b, components, world)` is within
+    LARGE_SHARE of `free_bytes`. So a rank's share of L takes about
+    n_pad (n_pad / world + b) / 2 values and every workspace O(n b).
+    `blocks` fixes P instead (tests, parity checks). Raises when even
+    b = 32 does not fit."""
     def ceil_div(a, c):
         return -(-a // c)
 
@@ -129,10 +150,11 @@ def large_block_plan(n: int, free_bytes: int, components: int = 5, blocks=None):
         return plan(int(blocks))
     budget = LARGE_SHARE * free_bytes
     for b_max in range(LARGE_BLOCK_MAX, 31, -32):
-        P, b, n_pad = plan(ceil_div(n, b_max))
-        if large_patient_bytes(n_pad, b, components) <= budget:
+        P, b, n_pad = plan(ceil_div(ceil_div(n, b_max), world) * world)
+        if large_patient_bytes(n_pad, b, components, world) <= budget:
             return P, b, n_pad
     raise MemoryError(
-        f"large patient of {n} observations: {large_patient_bytes(n + 32, 32, components)}"
-        f" bytes at b = 32 exceed {LARGE_SHARE} of the {free_bytes} free"
+        f"large patient of {n} observations: "
+        f"{large_patient_bytes(n + 32 * world, 32, components, world)} bytes a rank at "
+        f"b = 32 exceed {LARGE_SHARE} of the {free_bytes} free"
     )

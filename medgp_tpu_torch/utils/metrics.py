@@ -2,9 +2,10 @@
 
 Counterpart of ``medgp_tpu/utils/metrics.py``: every stage appends typed
 scalar records to one metrics.jsonl; an array becomes its mean, median and
-95th percentile (`{key}_mean`, `_p50`, `_p95`). The port runs as one
-process, so every record carries process 0, the field the JAX package's
-readers expect.
+95th percentile (`{key}_mean`, `_p50`, `_p95`). Every record carries
+`process`, the rank of this process in the `torch.distributed` group (0
+without one); rank r > 0 writes metrics.p{r}.jsonl beside it, since
+concurrent appends to one file can interleave mid-line.
 """
 
 from __future__ import annotations
@@ -15,17 +16,22 @@ import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 
 class MetricsWriter:
     def __init__(self, path: Optional[str], run_id: str = "run"):
-        self.path = path
         self.run_id = run_id
+        self.process = dist.get_rank() if dist.is_initialized() else 0
+        if path and self.process:
+            root, ext = os.path.splitext(path)
+            path = f"{root}.p{self.process}{ext}"
+        self.path = path
         if path:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
 
     def write(self, stage: str, **scalars: Any) -> Dict[str, Any]:
-        rec = dict(ts=time.time(), run=self.run_id, process=0, stage=stage)
+        rec = dict(ts=time.time(), run=self.run_id, process=self.process, stage=stage)
         for k, v in scalars.items():
             if isinstance(v, (np.ndarray, list, tuple)):
                 a = np.asarray(v, float).ravel()

@@ -188,8 +188,8 @@ def test_run_writes_every_artifact_and_its_handoff_equals_kernclust(
     cfg = staged["generate"](texp, "run")
     # train in two buckets, in reverse cohort order
     pack = trunner.pack_patients
-    monkeypatch.setattr(trunner, "pack_patients", lambda recs, max_batch, device:
-                        pack(recs[::-1], max_batch=4, device=device))
+    monkeypatch.setattr(trunner, "pack_patients", lambda recs, max_batch, device, **kw:
+                        pack(recs[::-1], max_batch=4, device=device, **kw))
     handed = []
     handoff = tpipe.kernel_clustering_fold_in_memory
     monkeypatch.setattr(tpipe, "kernel_clustering_fold_in_memory",
