@@ -89,15 +89,29 @@ Phases (any failure raises and the script exits non-zero):
      the row's scale of the one-rank result, with each rank's peak device
      memory beside utils/hbm.py's rule at world 2. Each rank writes its
      launch counts to a JSON file, which the kernels line adds in;
- 10. print one JSON line with the samplers' numbers, one with the large
-     patient's, one with the multi-rank phases', one with the kernels'
-     numbers, then the result line.
+ 10. etl_to_run, from raw tables to a full-width `run` on the card:
+     synthetic MIMIC-III tables (ETL_ADMISSIONS), the port's
+     extract_cohort_from_csvs (its seconds and rows/s) held to what the
+     generator worked out (the id list, every feature file byte for byte,
+     the stats within 1e-12 of numpy's); the native cohort loader, which
+     must build, bitwise the Python loader on that cohort (both timed);
+     CLI `generate` and `run` on it at full width with two folds, every
+     kernel launched and every output checked as in phase 6; K1's masked
+     gram on trained patients of the n = 512 bucket against the float64
+     fastkernel oracle (1e-4 relative, 1e-5 absolute); and the fold -1
+     mode kernel's printed summary and plots ("matplotlib absent" where
+     it is);
+ 11. print one JSON line with the samplers' numbers, one with the large
+     patient's, one with the multi-rank phases', one with etl_to_run's,
+     one with the kernels' numbers, then the result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import csv
+import gzip
 import io
 import json
 import logging
@@ -119,6 +133,9 @@ from medgp_tpu_torch.config.experiment import ExperimentConfig
 from medgp_tpu_torch.data import formats
 from medgp_tpu_torch.data.cohort import PatientRecord, load_cohort, pack_patients
 from medgp_tpu_torch.data.inits import default_bounds, random_inits
+from medgp_tpu_torch.data.mimic_etl import (
+    ALL_FEATURE_IDS, LAB_ITEMS, VITAL_BOUNDS, VITAL_ITEMS, extract_cohort_from_csvs,
+)
 from medgp_tpu_torch.data.synthetic import (
     cluster_thetas, sample_cluster_params, sample_cohort,
     write_reference_format_cohort,
@@ -150,7 +167,10 @@ from medgp_tpu_torch.parallel.mesh import (
 from medgp_tpu_torch.parallel.runner import (
     MAX_BATCH, TEST_MODES, _test_prior, hmc_cohort, test_cohort, train_cohort,
 )
+from medgp_tpu_torch.runtime import bindings
 from medgp_tpu_torch.utils import hbm
+from medgp_tpu_torch.visualization import fastkernel, vizkernel
+from medgp_tpu_torch.visualization.printkernel import print_kernel_info
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".chip_smoke")
@@ -256,6 +276,35 @@ MESH_VALUE_REL = 1e-6
 MESH_GRAD_TOL = 1e-5
 RANKS_SHARED = 2
 RANK_TIMEOUT = 420
+
+# The ETL phase (etl_to_run): synthetic MIMIC-III tables (DIAGNOSES_ICD,
+# ADMISSIONS, CHARTEVENTS, LABEVENTS as .csv.gz, the columns of MIMIC-III
+# v1.4) from SEED, of 256 admissions: 190 with an ICD-9 428* code, of which
+# 12 died, 12 have no chart data, 6 fail the ETL's first pass (3 values of
+# one signal) and 8 pass it but fail the second (3 values of one signal in
+# 0-72 h, 4 before admission); the other 66 are not heart failure (half
+# with events). Each admission with events has 5-20 events per signal in
+# 0-72 h, about a level drawn per admission (so n = 120-480 spreads over
+# the buckets 128, 256 and 512), one of them at a repeated CHARTTIME, plus
+# an out-of-bound value, an empty VALUENUM and a pre-admission event per
+# signal; LABEVENTS adds rows with no HADM_ID; rows of other ITEMIDs,
+# ETL_NOISE times the rows the ETL keeps, fill CHARTEVENTS to about 0.4M
+# rows. MIMIC-III's CHARTEVENTS has about 330 million rows.
+ETL_ADMISSIONS = dict(ok=152, dead=12, no_chart=12, fail_pass1=6, fail_pass2=8, other=66)
+ETL_EVENTS = (5, 20)
+ETL_NOISE = 10
+ETL_LAB_SHARE = 0.1  # of the other ITEMIDs' rows, in LABEVENTS
+# (typical value, relative spread) of each signal, in ALL_FEATURE_IDS order
+ETL_VALUES = [
+    (18, .2), (85, .15), (120, .15), (98.4, .008), (30, .4), (25, .12),
+    (8.6, .08), (101, .04), (1.3, .5), (130, .3), (32, .15), (10.5, .15),
+    (29.5, .08), (33, .04), (89, .07), (1.4, .3), (15, .2), (35, .3),
+    (220, .4), (4.2, .12), (3.6, .15), (15, .12), (138, .03), (9.5, .4),
+]
+# fastkernel against K1: trained patients of the n = 512 bucket, with the
+# gram tolerance of ROADMAP (1e-4 relative, 1e-5 absolute, per entry)
+ETL_K1_PATIENTS = 8
+GRAM_RTOL, GRAM_ATOL = 1e-4, 1e-5
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates): fp32
 # outside the tensor cores, and device memory. bound_ms is the larger of the two
@@ -2087,6 +2136,296 @@ def rank_main(argv):
     return 0
 
 
+def synthetic_mimic(out_dir, seed):
+    """Write the ETL phase's synthetic MIMIC-III tables (ETL_ADMISSIONS;
+    ETL_EVENTS per signal; ETL_NOISE) under `out_dir` and return what the
+    ETL must make of them, worked out here from the rows alone: the
+    admission ids of cohort_hadm_match.txt, every pass-1 admission's
+    feature files as bytes, each signal's (mean, std) over the pass-1
+    values (np.mean, np.std), the ids whose files stay without a listing
+    and those with no files, and the rows of each event table."""
+    lo, hi = ETL_EVENTS
+    rng = np.random.default_rng(seed)
+    signals = [(idx, item, lb, ub, "chart")
+               for (idx, _, item), (lb, ub) in zip(VITAL_ITEMS, VITAL_BOUNDS)]
+    signals += [(idx, item, 0.0, None, "lab") for idx, _, item in LAB_ITEMS]
+    kinds = np.asarray([k for k, c in ETL_ADMISSIONS.items() for _ in range(c)])
+    n_adm = len(kinds)
+    hadm = rng.choice(np.arange(100000, 200000), n_adm, replace=False)
+    admit = (np.datetime64("2150-01-01T00:00:00", "s")
+             + rng.integers(0, 3650 * 86400, n_adm).astype("timedelta64[s]"))
+    with_events = (kinds != "other") | (np.arange(n_adm) % 2 == 0)
+    rows = {"chart": [], "lab": []}  # (admission, item, offset s, value)
+    kept = 0  # the pass-1 admissions' rows in 0-72 h with a value in bounds
+    for a in np.flatnonzero(with_events):
+        kind = kinds[a]
+        special = int(rng.integers(len(signals)))
+        level, period = rng.normal(), rng.uniform(12, 72)
+        density = rng.uniform(lo, hi)  # events per signal, about
+        for s, (idx, item, lb, ub, table) in enumerate(signals):
+            mean, spread = ETL_VALUES[s]
+            short = kind in ("fail_pass1", "fail_pass2") and s == special
+            k = 3 if short else int(np.clip(np.rint(density + rng.normal()), lo, hi))
+            offs = np.unique(rng.integers(60, 72 * 3600, k + 8))[: k - 1]
+            offs = np.concatenate([offs, offs[:1]])  # one repeated CHARTTIME
+            vals = mean * (1 + spread * (0.5 * level + 0.5 * np.sin(
+                2 * np.pi * offs / 3600 / period) + 0.5 * rng.normal(size=k)))
+            vals = np.round(np.clip(vals, (lb or 0.0) + 0.01, ub or np.inf), 2)
+            pre = rng.integers(-48 * 3600, -60, 4 if kind == "fail_pass2" and short else 1)
+            if kind == "fail_pass1" and short:
+                pre = pre[:0]
+            edge_t = rng.integers(60, 72 * 3600, 2)
+            oob = ub + 50.0 if ub is not None else -1.0
+            kept += k if kind in ("ok", "fail_pass2") else 0
+            add = rows[table].append
+            for o, v in zip(offs, vals):
+                add((a, item, int(o), float(v)))
+            for o in pre:
+                add((a, item, int(o), float(np.round(mean, 2))))
+            add((a, item, int(edge_t[0]), oob))
+            add((a, item, int(edge_t[1]), np.nan))
+    # outpatient labs (no HADM_ID), then the other ITEMIDs
+    ours = {item for _, item, *_ in signals}
+    for _ in range(1000):
+        rows["lab"].append((-1, LAB_ITEMS[int(rng.integers(len(LAB_ITEMS)))][2],
+                            int(rng.integers(-1e6, 1e6)), float(rng.uniform(1, 9))))
+    n_noise = ETL_NOISE * kept
+    for table, share, base in (("chart", 1 - ETL_LAB_SHARE, 220000), ("lab", ETL_LAB_SHARE, 50800)):
+        m = int(n_noise * share)
+        items = base + rng.integers(0, 700, m)
+        items = np.where(np.isin(items, list(ours)), base + 999, items)
+        adm = rng.integers(-1, n_adm, m)
+        offs = rng.integers(-48 * 3600, 96 * 3600, m)
+        vals = np.round(rng.uniform(0, 200, m), 2)
+        rows[table] += list(zip(adm.tolist(), items.tolist(), offs.tolist(), vals.tolist()))
+
+    # the tables, event rows in a shuffled order
+    os.makedirs(out_dir, exist_ok=True)
+    code = {"ok": "4280", "dead": "42823", "no_chart": "42833", "fail_pass1": "42822",
+            "fail_pass2": "4281", "other": "4019"}
+    subject = rng.integers(10000, 99999, n_adm)
+
+    def write(name, header, body):
+        with gzip.open(os.path.join(out_dir, f"{name}.csv.gz"), "wt", compresslevel=1,
+                       newline="") as f:
+            w = csv.writer(f)
+            w.writerow(header)
+            w.writerows(body)
+
+    diag = [(subject[a], hadm[a], 1, code[kinds[a]]) for a in range(n_adm)]
+    diag += [(subject[a], hadm[a], 2, c) for a in range(n_adm) for c in ("41401", "V4581")]
+    write("DIAGNOSES_ICD", ["ROW_ID", "SUBJECT_ID", "HADM_ID", "SEQ_NUM", "ICD9_CODE"],
+          ((i + 1, *r) for i, r in enumerate(diag)))
+    admit_s = np.char.replace(np.datetime_as_string(admit, unit="s"), "T", " ")
+    write("ADMISSIONS", [
+        "ROW_ID", "SUBJECT_ID", "HADM_ID", "ADMITTIME", "DISCHTIME", "DEATHTIME",
+        "ADMISSION_TYPE", "DIAGNOSIS", "DISCHARGE_LOCATION", "HOSPITAL_EXPIRE_FLAG",
+        "HAS_CHARTEVENTS_DATA"], (
+        (a + 1, subject[a], hadm[a], admit_s[a], "", "", "EMERGENCY",
+         "CONGESTIVE HEART FAILURE, ACUTE" if kinds[a] != "other" else "CHEST PAIN",
+         "DEAD/EXPIRED" if kinds[a] == "dead" else "HOME", int(kinds[a] == "dead"),
+         int(kinds[a] != "no_chart")) for a in rng.permutation(n_adm)))
+    tables = {}
+    for table in ("chart", "lab"):
+        r = rows[table]
+        order = rng.permutation(len(r))
+        a = np.asarray([r[i][0] for i in order])
+        item = np.asarray([r[i][1] for i in order])
+        off = np.asarray([r[i][2] for i in order])
+        val = np.asarray([r[i][3] for i in order], np.float64)
+        when = np.char.replace(np.datetime_as_string(
+            admit[np.maximum(a, 0)] + off.astype("timedelta64[s]"), unit="s"), "T", " ")
+        hadm_s = np.where(a >= 0, hadm[np.maximum(a, 0)].astype(str), "")
+        vnum = ["" if v != v else repr(v) for v in val.tolist()]
+        tables[table] = (a, item, off, val)
+        if table == "chart":
+            write("CHARTEVENTS", [
+                "ROW_ID", "SUBJECT_ID", "HADM_ID", "ICUSTAY_ID", "ITEMID", "CHARTTIME",
+                "STORETIME", "CGID", "VALUE", "VALUENUM", "VALUEUOM", "WARNING", "ERROR",
+                "RESULTSTATUS", "STOPPED"], (
+                (i + 1, subject[max(x, 0)], h, 200000 + max(x, 0), it, w, w, 15000,
+                 v, v, "units", 0, 0, "", "")
+                for i, (x, h, it, w, v) in enumerate(zip(
+                    a.tolist(), hadm_s.tolist(), item.tolist(), when.tolist(), vnum))))
+        else:
+            write("LABEVENTS", [
+                "ROW_ID", "SUBJECT_ID", "HADM_ID", "ITEMID", "CHARTTIME", "VALUE",
+                "VALUENUM", "VALUEUOM", "FLAG"], (
+                (i + 1, subject[max(x, 0)], h, it, w, v, v, "mg/dL", "")
+                for i, (x, h, it, w, v) in enumerate(zip(
+                    a.tolist(), hadm_s.tolist(), item.tolist(), when.tolist(), vnum))))
+
+    # what the ETL must make of them
+    first = sorted(np.flatnonzero((kinds == "ok") | (kinds == "fail_pass2")),
+                   key=lambda a: hadm[a])
+    stats, files = {}, {}
+    ours_rows = {  # the pass-1 admissions' rows of the 24 signals, in table order
+        table: tuple(x[sel] for x in cols) for table, cols in tables.items()
+        for sel in [np.flatnonzero(np.isin(cols[0], first) & np.isin(cols[1], list(ours)))]
+    }
+    for idx, item, lb, ub, table in signals:
+        a, it, off, val = ours_rows[table]
+        pooled = []
+        for x in first:
+            sel = np.flatnonzero((a == x) & (it == item))
+            v = val[sel]
+            ok = ~np.isnan(v) & (v > lb) & ((v <= ub) if ub is not None else True)
+            pooled.append(v[ok])
+            keep = sel[ok & (off[sel] > 0)]
+            keep = keep[np.argsort(off[keep], kind="stable")]
+            t = off[keep].astype(np.float64).astype(np.float32) / np.float32(3600)
+            body = np.stack([t, val[keep].astype(np.float32)], 1).ravel()
+            files[(f"hadm_{hadm[x]}", idx)] = "".join(
+                "%6.6f\n" % u for u in [float(len(keep)), *body.astype(np.float64).tolist()]
+            ).encode()
+        allv = np.concatenate(pooled)
+        stats[idx] = (float(np.mean(allv)), float(np.std(allv)))
+    pan = lambda kind: sorted(f"hadm_{hadm[a]}" for a in np.flatnonzero(kinds == kind))
+    return dict(
+        pans=[f"hadm_{hadm[a]}" for a in first if kinds[a] == "ok"], files=files,
+        stats=stats, unlisted=pan("fail_pass2"),
+        absent=[p for k in ("dead", "no_chart", "fail_pass1", "other") for p in pan(k)],
+        rows={t: len(v[0]) for t, v in tables.items()},
+    )
+
+
+def check_etl(out_dir, pans, truth):
+    """The ETL's output against what synthetic_mimic worked out: the id
+    list, every feature file byte for byte, the stats within 1e-12
+    relative (and whether bitwise), the files of the admissions that fail
+    the second pass, and none of the others'."""
+    check(pans == truth["pans"], f"ETL: {len(pans)} admissions, expected {len(truth['pans'])}")
+    with open(os.path.join(out_dir, "cohort_hadm_match.txt")) as f:
+        check(f.read().split() == truth["pans"], "ETL: cohort_hadm_match.txt")
+    for (pan, idx), want in truth["files"].items():
+        with open(os.path.join(out_dir, pan, f"feature{idx}.txt"), "rb") as f:
+            check(f.read() == want, f"ETL: {pan}/feature{idx}.txt differs")
+    rel, bitwise = 0.0, True
+    for idx, want in truth["stats"].items():
+        got = formats.read_feature_stat(os.path.join(out_dir, f"feature{idx}_stat.bin"))
+        rel = max(rel, *(abs(g - w) / abs(w) for g, w in zip(got, want)))
+        bitwise &= tuple(got) == tuple(want)
+    check(rel <= 1e-12, f"ETL: stats {rel:.3e} from numpy's (relative)")
+    for pan in truth["unlisted"]:
+        check(os.path.isdir(os.path.join(out_dir, pan)), f"ETL: no files of {pan}")
+    for pan in truth["absent"]:
+        check(not os.path.exists(os.path.join(out_dir, pan)), f"ETL: files of {pan}")
+    print(f"ETL output: {len(pans)} admissions listed, {len(truth['files'])} feature files "
+          f"byte-equal to the generator's, {len(truth['unlisted'])} unlisted with files, "
+          f"{len(truth['absent'])} without; stats {rel:.3e} from numpy's "
+          f"({'bitwise' if bitwise else 'not bitwise'})")
+    return rel, bitwise
+
+
+def fastkernel_vs_k1(cfg, recs, dev):
+    """K1's masked gram at full width (n = 512, Q = 5, D = 24, R = 8) on
+    ETL_K1_PATIENTS trained patients of the n = 512 bucket, with their
+    thetas from the train files, against fastkernel.gram_lmcsm in float64
+    on the same (float32) times: every valid entry within GRAM_ATOL +
+    GRAM_RTOL |ref|."""
+    spec = LMCSMSpec(Q, D, R)
+    trained = dict(zip(*formats.read_train_kernels(cfg.exp_train_dir, [r.pan for r in recs])))
+    pick = [r for r in recs if 256 < r.n_obs <= 512 and r.pan in trained][:ETL_K1_PATIENTS]
+    check(len(pick) == ETL_K1_PATIENTS, f"only {len(pick)} trained patients at n = 512")
+    n = 512
+    t = np.zeros((len(pick), n), np.float32)
+    meta = np.zeros((len(pick), n), np.int32)
+    mask = np.zeros((len(pick), n), np.float32)
+    for i, r in enumerate(pick):
+        t[i, : r.n_obs], meta[i, : r.n_obs], mask[i, : r.n_obs] = r.t, r.meta, 1.0
+    theta = np.stack([trained[r.pan] for r in pick])
+    p = spec.unpack(theta_from_numpy(spec, theta, dev))
+    B = spec.coregional_B(p["A"], p["kappa"]).contiguous()
+    K = cuda_gram.gram_lmcsm_fused(
+        *(torch.as_tensor(x, device=dev) for x in (t, meta)), B, p["mu"].contiguous(),
+        p["v"].contiguous(), torch.as_tensor(mask, device=dev)).double().cpu().numpy()
+    err = ratio = scale = 0.0
+    for i, r in enumerate(pick):
+        ref = fastkernel.gram_lmcsm(theta[i], r.t.astype(np.float64), r.meta, Q, D, R)
+        d = np.abs(K[i, : r.n_obs, : r.n_obs] - ref)
+        err, scale = max(err, float(d.max())), max(scale, float(np.abs(ref).max()))
+        ratio = max(ratio, float((d / (GRAM_ATOL + GRAM_RTOL * np.abs(ref))).max()))
+    print(f"fastkernel vs K1 (n=512, {len(pick)} patients, Q={Q} D={D} R={R}, trained "
+          f"thetas): max |d K| {err:.3e} (max |K| {scale:.3e}); largest error over its "
+          f"bound {GRAM_ATOL:g} + {GRAM_RTOL:g} |K|: {ratio:.3f}")
+    check(ratio <= 1.0, f"K1 differs from fastkernel by {ratio:.3f} of the gram tolerance")
+    return dict(patients=len(pick), max_abs_err=err, max_abs_K=scale, tol_ratio=ratio)
+
+
+def etl_to_run(dev):
+    """From raw tables to a full-width `run` on the card: synthetic
+    MIMIC-III tables, the port's ETL (held to the generator), the native
+    cohort loader (bitwise the Python one), CLI `generate` and `run` on the
+    ETL's cohort (features of examples/feature_all.json, LMC-SM Q=5 R=8,
+    two folds, TRAIN_OPT), fastkernel against K1 on the trained thetas,
+    then the mode kernel's summary and plots."""
+    mimic, out = os.path.join(WORK, "mimic"), os.path.join(WORK, "data", "mimic")
+    t0 = time.perf_counter()
+    truth = synthetic_mimic(mimic, SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pans = extract_cohort_from_csvs(mimic, out)
+    etl_s = time.perf_counter() - t0
+    rows = sum(truth["rows"].values())
+    print(f"ETL: tables written in {gen_s:.2f} s ({truth['rows']['chart']} CHARTEVENTS, "
+          f"{truth['rows']['lab']} LABEVENTS rows); extract_cohort_from_csvs "
+          f"{etl_s:.2f} s = {rows / etl_s:.0f} rows/s")
+    stats_rel, stats_bitwise = check_etl(out, pans, truth)
+
+    feature_config = os.path.join(ROOT, "examples", "feature_all.json")
+    with open(feature_config) as f:
+        features = [x["index"] for x in json.load(f)["feature_list"]]
+    check(features == ALL_FEATURE_IDS, "feature_all.json is not the ETL's 24 signals")
+    check(bindings.native_available(), "the native cohort loader did not build")
+    t0 = time.perf_counter()
+    native = bindings.load_cohort_native(out, pans, features)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = load_cohort(out, pans, features)
+    python_s = time.perf_counter() - t0
+    for a, b in zip(native, recs):
+        check(a.pan == b.pan and all(np.array_equal(getattr(a, k), getattr(b, k))
+                                     for k in ("t", "y", "meta")),
+              f"{a.pan}: the native loader's record differs from the Python loader's")
+    n_obs = [r.n_obs for r in recs]
+    print(f"loaders: native {native_s:.4f} s, Python {python_s:.4f} s for {len(recs)} "
+          f"patients ({sum(n_obs)} observations, n {min(n_obs)}-{max(n_obs)}); bitwise equal")
+
+    cfg_path = generate_experiment("etl", feature_config, TRAIN_OPT, Q=Q, R=R, folds=2,
+                                   cohort="mimic")
+    cfg = ExperimentConfig.from_json(cfg_path)
+    seconds, counts, summary = run_fused("run (ETL cohort)", cfg_path, dev)
+    check_train_outputs(cfg, recs)
+    modes = check_mode_kernels(cfg, (-1, 0, 1))
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+    stages = run_stage_seconds(cfg)
+    print(f"run (ETL cohort): stage seconds {json.dumps(stages)}; summary "
+          f"{json.dumps(summary)}")
+    k1 = fastkernel_vs_k1(cfg, recs, dev)
+
+    theta, newQ = modes[-1]
+    spec = LMCSMSpec(newQ, D, R)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        print_kernel_info(spec, theta)
+    print(text.getvalue(), end="")
+    check(len(text.getvalue().splitlines()) == newQ + 2, "print_kernel_info's lines")
+    paths = vizkernel.plot_lmcsm_kernel(spec, theta, os.path.join(cfg.exp_top_dir, "plots"))
+    if paths is None:
+        check(not vizkernel._HAS_MPL, "plot_lmcsm_kernel returned None with matplotlib")
+        print("plots: matplotlib absent, none written")
+    else:
+        check(len(paths) == newQ and all(map(os.path.exists, paths)), "plots missing")
+        print(f"plots: {len(paths)} written ({os.path.basename(paths[0])}, ...)")
+    return counts, dict(
+        rows=truth["rows"], tables_s=gen_s, etl_s=etl_s, rows_per_s=rows / etl_s,
+        admissions=len(pans), stats_rel=stats_rel, stats_bitwise=stats_bitwise,
+        native_load_s=native_s, python_load_s=python_s, run_s=seconds, stages=stages,
+        summary=summary, fastkernel_k1=k1, plots=None if paths is None else len(paths),
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2278,6 +2617,8 @@ def main():
     phase_done("mesh_shared_card")
     ls_c, large_sc = large_sharded_shared_card(dev)
     phase_done("large_sharded_shared_card")
+    etl_c, etl_out = etl_to_run(dev)
+    phase_done("etl_to_run")
 
     by_path = {
         name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
@@ -2288,7 +2629,7 @@ def main():
                **{f"large_{n}": c[name] for n, (c, _) in lg_evals.items()},
                **{k: c[name] for k, c in mw_c.items()},
                "mesh_run_shared_card": ms_c[name],
-               "large_sharded_shared_card": ls_c[name]}
+               "large_sharded_shared_card": ls_c[name], "run_etl": etl_c[name]}
         for name in KERNELS
     }
     src = "medgp_tpu_torch/csrc/"
@@ -2343,6 +2684,7 @@ def main():
     print(json.dumps({"mesh": {
         "world1": mesh_w1, "run_shared_card": mesh_sc, "large_shared_card": large_sc,
     }}))
+    print(json.dumps({"etl_to_run": etl_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

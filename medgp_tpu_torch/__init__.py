@@ -17,8 +17,11 @@ with their diagnostics; CLI ``hmc``) and the fused ``run`` (with
 Cholesky + solve (K3), the NLML's Q-matrix cotangent (K4) and the
 triangular inverse (K5), and the row-blocked path for LMC-SM patients
 above the large-patient threshold (``parallel/mesh.py``,
-``infer/large_train.py``: K3 and K5 on every diagonal block), on one
-device. Not yet: several devices.
+``infer/large_train.py``: K3 and K5 on every diagonal block), the cohort
+sharded over several devices (``parallel/``, ``torch.distributed``), and
+the host-only modules: the MIMIC-III ETL without pandas
+(``data/mimic_etl.py``), the native cohort loader (``runtime/``, built with
+g++ on first use) and the kernel summaries and plots (``visualization/``).
 """
 
 import torch

@@ -58,6 +58,28 @@ def _load_cfg(path):
     return ExperimentConfig.from_json(path)
 
 
+def _load_records(cfg, pans=None):
+    """The cohort's records, through the native loader
+    (`runtime/bindings.py`) where it builds, else the Python one
+    (medgp_tpu/cli/main.py:43-53); both give the same bits. Logs which
+    loader ran and how many observations it read."""
+    from medgp_tpu_torch.data.cohort import load_cohort
+    from medgp_tpu_torch.runtime import bindings
+
+    pans = cfg.pans() if pans is None else pans
+    t0 = time.time()
+    if bindings.native_available():
+        loader, records = "native", bindings.load_cohort_native(
+            cfg.data_dir, pans, cfg.feature_list)
+    else:
+        loader, records = "python", load_cohort(cfg.data_dir, pans, cfg.feature_list)
+    log.info(
+        "loaded %d patients (%d observations) with the %s loader in %.2fs",
+        len(records), sum(r.n_obs for r in records), loader, time.time() - t0,
+    )
+    return records
+
+
 def cmd_generate(args):
     from medgp_tpu_torch.config.experiment import generate_experiment
 
@@ -98,14 +120,11 @@ def _device(args) -> torch.device:
 
 
 def cmd_train(args):
-    from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.parallel.runner import train_cohort
 
     device = _device(args)
     cfg = _load_cfg(args.cfg)
-    records = load_cohort(
-        cfg.data_dir, [args.pan] if args.pan else cfg.pans(), cfg.feature_list
-    )
+    records = _load_records(cfg, [args.pan] if args.pan else None)
     t0 = time.time()
     out = train_cohort(
         cfg, records, n_restarts=args.restarts, max_batch=args.max_batch,
@@ -120,15 +139,12 @@ def cmd_train(args):
 
 
 def cmd_test(args):
-    from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.parallel.runner import test_cohort
 
     device = _device(args)
     cfg = _load_cfg(args.cfg)
     pans = cfg.pans()
-    records = load_cohort(
-        cfg.data_dir, [args.pan] if args.pan else pans, cfg.feature_list
-    )
+    records = _load_records(cfg, [args.pan] if args.pan else pans)
     if args.fold is not None:
         folds = np.full(len(records), args.fold)
     else:
@@ -184,14 +200,11 @@ def cmd_eval(args):
 
 
 def cmd_hmc(args):
-    from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.parallel.runner import hmc_cohort
 
     device = _device(args)
     cfg = _load_cfg(args.cfg)
-    records = load_cohort(
-        cfg.data_dir, [args.pan] if args.pan else cfg.pans(), cfg.feature_list
-    )
+    records = _load_records(cfg, [args.pan] if args.pan else None)
     t0 = time.time()
     out = hmc_cohort(
         cfg, records, num_chains=args.chains, num_warmup=args.warmup,
@@ -236,7 +249,6 @@ def cmd_run(args):
     summary, and every rank waits for rank 0's files before the next stage
     reads them."""
     from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold_in_memory
-    from medgp_tpu_torch.data.cohort import load_cohort
     from medgp_tpu_torch.evaluation.evals import eval_cohort, summarize
     from medgp_tpu_torch.models.params import LMCSMSpec
     from medgp_tpu_torch.parallel.mesh import barrier
@@ -251,7 +263,7 @@ def cmd_run(args):
     pans = cfg.pans()
     seconds = {}
     t0 = time.time()
-    records = load_cohort(cfg.data_dir, pans, cfg.feature_list)
+    records = _load_records(cfg, pans)
     tout = train_cohort(cfg, records, n_restarts=args.restarts, device=device)
     seconds["train"] = time.time() - t0
     log.info("[run] train done at %.1fs", time.time() - t0)
