@@ -37,13 +37,18 @@ Phases (any failure raises and the script exits non-zero):
   6. the fused CLI `run` (train, kernclust of every fold with the GMM and
      the KDEs on the card, test in both modes, eval) twice, each with the
      counters set to 0 just before and read just after: at full width on
-     the same 64 patients with two folds, then `kernclust --fold -1` and
-     `eval` on its files, which must repeat its mode kernel and summary;
+     the same 64 patients with two folds through the example script
+     medgp_tpu_torch/examples/run_pipeline.sh (a process of its own whose
+     launches its stand-in $PYTHON counts: `--rank exec`), then
+     `kernclust --fold -1` and `eval` on its files, which must repeat its
+     mode kernel and summary;
      and on tools/refbudget_run.sh's PT/INR cohort at its reduced budgets,
      trained from the JAX package's restart draws, where each test mode's
      MAE must lie within three combined standard errors of the JAX
      package's (JAX_PTINR_MAE);
-  7. the posterior samplers on the trained cohort of phase 5: the HMC
+  7. the posterior samplers on the trained cohort of phase 5, every
+     (patient, chain) drawing from its own counter-based stream
+     (medgp_tpu_torch/infer/streams.py): the HMC
      potential (K1, K3, K4 with K5 inside it, K2) on the n=512 bucket's
      (patient, chain) rows and one 16-step leapfrog trajectory, kernels
      against twins; the CLI `hmc` with each sampler (hmc, nuts, vi) at cut
@@ -61,7 +66,8 @@ Phases (any failure raises and the script exits non-zero):
      alike on repeat, against the dense one of `objective_and_grad` and
      the float64 twins, with
      K3 and K5 on one diagonal block (B=1) timed beside `cholesky_ex` and
-     `solve_triangular`; the CLI `train` (default threshold) on a cohort
+     `solve_triangular`; the CLI `train` through the example script
+     train_large_patient.sh (default threshold, --restarts 64) on a cohort
      with one 16,384-observation patient, which trains by row blocks
      (one `train_large` record, its NLML below the best screen value);
      one value+gradient at n=16,384 and at n=65,536, each with its seconds
@@ -87,8 +93,14 @@ Phases (any failure raises and the script exits non-zero):
      value+gradient of mesh_world1 over two ranks (two blocks each), its
      value within MESH_VALUE_REL and its gradient within MESH_GRAD_TOL of
      the row's scale of the one-rank result, with each rank's peak device
-     memory beside utils/hbm.py's rule at world 2. Each rank writes its
-     launch counts to a JSON file, which the kernels line adds in;
+     memory beside utils/hbm.py's rule at world 2; and sampler_shared_card,
+     the CLI `hmc` over the two ranks on phase 5's MAP files: one device
+     sampling each rank's recorded slice with the same streams must give
+     the rank's draws bitwise, the slices keyed by the patients' cohort
+     indices, and the difference from phase 7's whole-bucket draws is
+     printed (not checked: the card's reductions, ROADMAP.md §C). Each rank
+     writes its launch counts to a JSON file, which the kernels line adds
+     in;
  10. etl_to_run, from raw tables to a full-width `run` on the card:
      synthetic MIMIC-III tables (ETL_ADMISSIONS), the port's
      extract_cohort_from_csvs (its seconds and rows/s) held to what the
@@ -101,9 +113,16 @@ Phases (any failure raises and the script exits non-zero):
      fastkernel oracle (1e-4 relative, 1e-5 absolute); and the fold -1
      mode kernel's printed summary and plots ("matplotlib absent" where
      it is);
- 11. print one JSON line with the samplers' numbers, one with the large
+ 11. examples: the port's example entry points on the card besides the
+     two of phases 6 and 8, each a process of its own with its launches
+     counted: launch_pod.py under `torchrun --standalone --nproc-per-node
+     1` (`run` on 16 of the staged patients, two folds, every output
+     checked) and gen_example.sh, which writes the canonical experiment
+     over etl_to_run's cohort without running it (its config checked);
+ 12. print one JSON line with the samplers' numbers, one with the large
      patient's, one with the multi-rank phases', one with etl_to_run's,
-     one with the kernels' numbers, then the result line.
+     one with the examples', one with the kernels' numbers, then the
+     result line.
 It imports nothing of JAX. Working files go to .chip_smoke/ beside it.
 """
 
@@ -112,10 +131,12 @@ from __future__ import annotations
 import contextlib
 import csv
 import gzip
+import importlib
 import io
 import json
 import logging
 import os
+import runpy
 import shutil
 import signal
 import socket
@@ -142,8 +163,9 @@ from medgp_tpu_torch.data.synthetic import (
 )
 from medgp_tpu_torch.evaluation.evals import mae_mean_se
 from medgp_tpu_torch.infer.diagnostics import ess_bulk
+from medgp_tpu_torch.infer import streams as st
 from medgp_tpu_torch.infer.hmc import (
-    _leapfrog, chain_starts, hmc_sample, make_potential, repeat_rows,
+    _leapfrog, chain_starts, hmc_patient, hmc_sample, make_potential, repeat_rows,
 )
 from medgp_tpu_torch.infer.large_train import pad_observations
 from medgp_tpu_torch.infer.map_train import screen_inits
@@ -174,6 +196,8 @@ from medgp_tpu_torch.visualization.printkernel import print_kernel_info
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".chip_smoke")
+EXAMPLES = os.path.join(ROOT, "medgp_tpu_torch", "examples")
+EXAMPLE_TIMEOUT = 300  # seconds for one example entry point
 SEED = 44
 Q, D, R = 5, 24, 8
 
@@ -246,6 +270,13 @@ WARMUP_MAX_DEPTH = 4
 # One leapfrog trajectory, kernels vs the float64 twins: theta relative to
 # its scale.
 THETA_REL = 1e-3
+# ... and on a patient whose gram's conditioning takes the float32 twins'
+# own trajectory past THETA_REL: tools/leapfrog_rows.py over 34 draws on
+# the card put the kernels' worst row of such a patient at 4.2e-3 to
+# 2.2e-2 (mean 1.0e-2, sd 3.8e-3; the twins' at 4.0e-3 to 3.1e-2), so
+# above twice the kernels' worst, or the twins' own worst on the patient
+# where that is larger.
+THETA_ILL_REL = 5e-2
 # bench.py's sampler protocol (bench.py:409-493); VI has none there: 32
 # ADVI steps of 4 draws at the same batch.
 BENCH = dict(batch=32, n=512, warmup=32, hmc_samples=24, leapfrog=16,
@@ -951,6 +982,49 @@ def run_path(name, argv, needs):
     return seconds, counts
 
 
+def run_example(name, cmd, needs, env=None):
+    """One of the port's example entry points as a user starts it (`cmd`, a
+    process of its own, on the card), in a session of its own that is
+    killed at EXAMPLE_TIMEOUT; its log goes to .chip_smoke/{name}.log. A
+    shell script's $PYTHON is a stand-in that runs the module through this
+    script's `--rank exec` mode, and a `torchrun` runs this script in its
+    place (`{out}` in `cmd` names the directory of its record), so the
+    child counts its own launches (set to 0 at its start); every kernel in
+    `needs` must have launched. Returns (seconds, counts, standard output,
+    the child's record)."""
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(WORK, "examples", name)
+    os.makedirs(out_dir, exist_ok=True)
+    stand_in = os.path.join(out_dir, "python")
+    with open(stand_in, "w") as f:
+        f.write(f'#!/bin/bash\nexec "{sys.executable}" "{os.path.abspath(__file__)}" '
+                f'--rank exec "{out_dir}" "$@"\n')
+    os.chmod(stand_in, 0o755)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [x.replace("{out}", out_dir) for x in cmd], cwd=ROOT, text=True,
+        env={**os.environ, "PYTHON": stand_in, **(env or {})}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(WORK, f"{name}.log"), "w") as f:
+        f.write(out + err)
+    check(proc.returncode == 0, f"{name}: exited {proc.returncode} after {seconds:.0f} s; "
+          f"the end of its log:\n{(out + err)[-3000:]}")
+    if not needs:
+        return seconds, {}, out, {}
+    (child,), counts = rank_counts(out_dir, "exec", world=1)
+    print(f"{name}: {seconds:.2f} s ({child['seconds']:.2f} s in the child); peak device "
+          f"memory {child['peak_bytes'] / 2**30:.2f} GiB; launches {counts}")
+    for k in needs:
+        check(counts[k] > 0, f"{name} never launched {k}")
+    return seconds, counts, out, child
+
+
 def check_test_outputs(cfg, recs, mode):
     outputs = {}
     for r in recs:
@@ -1107,11 +1181,16 @@ def run_fused(name, cfg_path, dev):
             name, ["run", "--cfg", cfg_path, "--device", str(dev)], tuple(KERNELS))
     text = out.getvalue()
     print(text, end="")
+    return seconds, counts, run_summary(name, text)
+
+
+def run_summary(name, text):
+    """The {mode: summary} line `run` printed last; every number finite."""
     summary = json.loads([x for x in text.splitlines() if x.startswith("{")][-1])
     for mode in TEST_MODES:
         for k in ("mae", "ci_ratio", "nll"):
             check(np.isfinite(summary[mode][k]), f"{name}: {mode} {k} not finite")
-    return seconds, counts, summary
+    return summary
 
 
 def check_mode_kernels(cfg, folds):
@@ -1138,13 +1217,18 @@ def run_stage_seconds(cfg):
 
 def run_full_width(dev):
     """`run` at the canonical width on the staged 64-patient cohort, two
-    folds; then the staged `kernclust --fold -1` and `eval` on its files."""
+    folds, through the port's example script run_pipeline.sh on the card
+    (a process of its own, counted by `run_example`); then the staged
+    `kernclust --fold -1` and `eval` on its files."""
     cfg_path = generate_experiment(
         "run", os.path.join(ROOT, "examples", "feature_all.json"), TRAIN_OPT,
         Q=Q, R=R, folds=2)
     cfg = ExperimentConfig.from_json(cfg_path)
     recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
-    seconds, counts, summary = run_fused("run (full width)", cfg_path, dev)
+    seconds, counts, stdout, _ = run_example(
+        "run_pipeline.sh", ["bash", os.path.join(EXAMPLES, "run_pipeline.sh"), cfg_path,
+                            "--device", dev.type], tuple(KERNELS))
+    summary = run_summary("run_pipeline.sh", stdout)
     check_train_outputs(cfg, recs)
     modes = check_mode_kernels(cfg, (-1, 0, 1))
     for mode in TEST_MODES:
@@ -1272,24 +1356,30 @@ def sampler_bucket(cfg, dev, chains):
 def sampler_potential_and_leapfrog(cfg, dev, chains=4, steps=16, eps=2e-4):
     """The HMC potential (K1, K3, K4, K2) on the n=512 bucket's (patient,
     chain) rows, and one leapfrog trajectory of `steps` steps from the same
-    momenta (one generator state; unit mass, `eps` small enough that no
+    momenta (the rows' streams; unit mass, `eps` small enough that no
     row diverges), through the kernels, the float32 twins and the twins in
     float64. The MAP points of trained patients include ill-conditioned
     grams, on which the float32 twins' gradient misses the float64 one by
     up to ~20% (PERF.md §6), so the kernels are held to the float64
     twins: U within VALUE_REL; dU within GRAD_TOL of each row's scale, or
     no further off than the float32 twins on that row; theta at the
-    trajectory's end within THETA_REL of each row's scale on every row
-    where the float32 twins' trajectory is (on an ill-conditioned row the
-    trajectory grows float32 rounding, from either path, past THETA_REL at
-    any step size that moves the other rows: those rows are printed). The
-    trajectory, not a transition: an accept draw near its threshold may
-    flip."""
+    trajectory's end within THETA_REL of each row's scale on every chain
+    of each patient on whose every chain the float32 twins' trajectory is;
+    on an ill-conditioned patient the trajectory grows float32 rounding,
+    from either path, past THETA_REL at any step size that moves the other
+    rows, and which of its chains stays within is a matter of the draw
+    (tools/leapfrog_rows.py), so every chain of a patient on a chain of
+    which the twins leave THETA_REL is held within THETA_ILL_REL, or within
+    the twins' worst row of that patient where that is larger (those rows
+    are printed). The trajectory, not a transition: an accept draw near
+    its threshold may flip."""
     spec, b, data, theta0, prior = sampler_bucket(cfg, dev, chains)
     gmask = prior.grad_mask()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    th = chain_starts(theta0, gen, chains, gmask).reshape(-1, spec.n_hyp)
-    p = torch.randn(th.shape, generator=gen, device=dev)
+    streams = st.patient_streams(SEED, range(theta0.shape[0]), dev)
+    th = chain_starts(theta0, streams, chains, gmask).reshape(-1, spec.n_hyp)
+    ((w0, w1),) = st.words(st.with_chains(streams, chains), 0,
+                           ((st.HMC_MOMENTUM, spec.n_hyp),))
+    p = st.normal(w0, w1, th.dtype)
     rows = repeat_rows(data, chains)
     rows64 = PatientData(rows.t.double(), rows.y.double(), rows.meta, rows.mask.double())
 
@@ -1328,19 +1418,30 @@ def sampler_potential_and_leapfrog(cfg, dev, chains=4, steps=16, eps=2e-4):
           f"{float(th_k.max()):.3e} median {float(th_k.median()):.3e}, float32 twins max "
           f"{float(th_t.max()):.3e} (tol {THETA_REL:g}) after moving "
           f"{float((end64 - th.double()).abs().max()):.3e}")
-    loose = torch.nonzero(th_t > THETA_REL).squeeze(-1).tolist()
-    print(f"leapfrog: rows where the float32 twins' trajectory leaves {THETA_REL:g} of the "
-          f"float64 one (patient, chain; kernels' err, twins' err, kernels' dU err, twins'): "
+    # a patient's chains share its gram's conditioning (their starts differ
+    # by a 0.01 jitter)
+    twins_worst = th_t.reshape(-1, chains).amax(-1).repeat_interleave(chains)
+    held = twins_worst <= THETA_REL
+    ill_bound = torch.clamp(twins_worst, min=THETA_ILL_REL)
+    loose = torch.nonzero(~held).squeeze(-1).tolist()
+    print(f"leapfrog: rows of the patients on a chain of which the float32 twins' trajectory "
+          f"leaves {THETA_REL:g} of the float64 one, held within {THETA_ILL_REL:g} or the "
+          f"twins' worst on the patient (patient, chain; kernels' err, twins' err, kernels' "
+          f"dU err, twins'): "
           f"{[(i // chains, i % chains, float(th_k[i]), float(th_t[i]), float(ek[i]), float(et[i])) for i in loose]}")
     check(u_err(u) <= VALUE_REL, f"sampler potential: U rel err {u_err(u)} > {VALUE_REL}")
     worst = int(torch.argmax(ek - torch.clamp(et, min=GRAD_TOL)))
     check(bool((ek <= torch.clamp(et, min=GRAD_TOL)).all()),
           f"sampler potential: row {worst} dU err {float(ek[worst])} above {GRAD_TOL} and "
           f"the float32 twins' {float(et[worst])}")
-    held = th_t <= THETA_REL
     check(bool((th_k[held] <= THETA_REL).all()),
-          f"leapfrog: theta err {float(th_k[held].max())} > {THETA_REL} on a row the float32 "
-          f"twins hold")
+          f"leapfrog: theta err {float(th_k[held].max())} > {THETA_REL} on a patient the "
+          f"float32 twins hold")
+    worst = int(torch.argmax(torch.where(held, -1.0, th_k / ill_bound)))
+    check(bool((th_k[~held] <= ill_bound[~held]).all()),
+          f"leapfrog: theta err {float(th_k[worst])} of row {worst} (patient "
+          f"{worst // chains}) > {float(ill_bound[worst])}, the larger of {THETA_ILL_REL:g} "
+          f"and the float32 twins' worst on the patient")
     return th.shape[0]
 
 
@@ -1461,14 +1562,12 @@ def gaussian_moments(dev):
     def pg(x):
         return torch.sum(0.5 * ((x - mu) / sigma) ** 2, -1), (x - mu) / sigma**2
 
-    def gen():
-        return torch.Generator(device=dev).manual_seed(SEED)
-
+    one = st.patient_streams(SEED, [0], dev)
     got = {}
     for name, res in (
-        ("hmc", hmc_sample(pg, torch.zeros(1, 3, device=dev), gen(), num_warmup=500,
+        ("hmc", hmc_sample(pg, torch.zeros(1, 3, device=dev), one, num_warmup=500,
                            num_samples=2000, num_leapfrog=16, init_step_size=0.1)),
-        ("nuts", nuts_sample(pg, torch.zeros(1, 3, device=dev), gen(), num_warmup=400,
+        ("nuts", nuts_sample(pg, torch.zeros(1, 3, device=dev), one, num_warmup=400,
                              num_samples=1500, max_depth=6, init_step_size=0.1)),
     ):
         s = res.samples[0].cpu().numpy()
@@ -1478,8 +1577,8 @@ def gaussian_moments(dev):
         check(float(res.accept_rate[0]) > 0.6 and int(res.divergences[0]) == 0,
               f"{name} Gaussian: accept {float(res.accept_rate[0])}, divergences")
         check(m_err <= 0.25 and sd_err <= 0.35, f"{name} Gaussian moments: {got[name]}")
-    res = advi_fit(pg, torch.zeros(16, 3, device=dev), gen(), num_steps=1500, num_mc=8,
-                   learning_rate=0.05)
+    res = advi_fit(pg, torch.zeros(16, 3, device=dev), st.patient_streams(SEED, range(16), dev),
+                   num_steps=1500, num_mc=8, learning_rate=0.05)
     m_err = float((res.mean.mean(0) - mu).abs().max())
     sd_err = float((res.log_std.exp().mean(0) / sigma - 1).abs().max())
     got["vi"] = dict(mean_err=m_err, std_rel_err=sd_err)
@@ -1499,7 +1598,8 @@ def sampler_rates(dev):
     (warmup inside the timed call, not counted) and the min-over-hypers
     bulk ESS summed over patients per second. VI (no bench protocol): 32
     ADVI steps of 4 draws, steps/s. Objective batches (K2 launches) and,
-    for NUTS, host reads per transition are counted in the timed run."""
+    for NUTS, host reads per transition are counted in the timed run. Each
+    patient draws from its own stream (seed 0, its row as its key)."""
     spec = LMCSMSpec(Q, D, R)
     rng = np.random.default_rng(2)
     B, n = BENCH["batch"], BENCH["n"]
@@ -1512,6 +1612,7 @@ def sampler_rates(dev):
     prior = hier_gamma_prior(spec, beta_lam=0.01, device=dev)
     gmask = prior.grad_mask()
     theta0 = torch.as_tensor(th, device=dev)
+    streams = st.patient_streams(0, range(B), dev)
     warm = BENCH["warmup"]
     runs = {
         "hmc": (BENCH["hmc_samples"], lambda pg, g: hmc_sample(
@@ -1525,11 +1626,10 @@ def sampler_rates(dev):
     for name, (draws, fn) in runs.items():
         pg = make_potential(spec, data, prior)
         for _ in range(2):  # a warm-up run, then the timed one
-            gen = torch.Generator(device=dev).manual_seed(0)
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = fn(pg, gen)
+            res = fn(pg, streams)
             samples = res.samples.cpu().numpy()
             dt = time.perf_counter() - t0
         batches = read_launches()["gram_lmcsm_bwd"]
@@ -1548,8 +1648,8 @@ def sampler_rates(dev):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = advi_fit(pg, theta0, torch.Generator(device=dev).manual_seed(0),
-                       num_steps=BENCH["vi_steps"], num_mc=BENCH["vi_mc"], grad_mask=gmask)
+        res = advi_fit(pg, theta0, streams, num_steps=BENCH["vi_steps"], num_mc=BENCH["vi_mc"],
+                       grad_mask=gmask)
         res.mean.cpu()
         dt = time.perf_counter() - t0
     check(bool(torch.isfinite(res.mean).all()), "bench vi: non-finite mean")
@@ -1678,8 +1778,11 @@ def stage_large_cohort():
 
 
 def large_train_cli(dev):
-    """CLI `train` on the staged cohort with its default threshold: the
-    large patient trains by row blocks after the bucket. Checks one
+    """CLI `train` on the staged cohort through the port's example script
+    train_large_patient.sh (the default threshold, --restarts 64, which
+    cfg.large_patient_restarts caps for the large patient; a process of its
+    own, counted by `run_example`): the large patient trains by row blocks
+    after the bucket. Checks one
     `train_large` record (trained, finite loss), every patient's train
     files, the NLML at the trained hypers at or below the best screen
     value (the NLML at train_init_hyp), K3 and K5 launches, and prints the
@@ -1688,9 +1791,11 @@ def large_train_cli(dev):
     spec = LMCSMSpec(Q, D, R)
     free = torch.cuda.mem_get_info(0)[0]
     plan = hbm.large_block_plan(LARGE_TRAIN_N, free, Q)
-    secs, counts = run_path("train (large patient)", ["train", "--cfg", cfg_path,
-                                                      "--device", str(dev)], tuple(KERNELS))
-    peak = torch.cuda.max_memory_allocated()
+    secs, counts, _, child = run_example(
+        "train_large_patient.sh",
+        ["bash", os.path.join(EXAMPLES, "train_large_patient.sh"), cfg_path, "8192",
+         "--device", dev.type], tuple(KERNELS))
+    peak = child["peak_bytes"]
     with open(os.path.join(cfg.exp_log_dir, "metrics.jsonl")) as f:
         large = [json.loads(x) for x in f if '"stage": "train_large"' in x]
     check(len(large) == 1, f"expected one train_large record, got {len(large)}")
@@ -1917,10 +2022,11 @@ def torchrun(name, args):
     return out, seconds
 
 
-def rank_counts(out_dir, kind):
-    """Every rank's launch counts and numbers of a `--rank KIND` run."""
+def rank_counts(out_dir, kind, world=RANKS_SHARED):
+    """Every rank's launch counts and numbers of a `--rank KIND` run, and
+    their sums."""
     ranks = []
-    for r in range(RANKS_SHARED):
+    for r in range(world):
         with open(os.path.join(out_dir, f"{kind}.rank{r}.json")) as f:
             ranks.append(json.load(f))
     total = {k: sum(x["counts"][k] for x in ranks) for k in KERNELS}
@@ -2082,18 +2188,180 @@ def large_sharded_shared_card(dev):
     return counts, out
 
 
+def sampler_shared_card(dev, cfg, hmc_draws):
+    """CLI `hmc` (hmc at SAMPLER_BUDGET) over two ranks sharing the card
+    (gloo) on a copy of the trained experiment's MAP files. Each rank
+    records every sampler call of its slice (`--rank hmc`): one device
+    sampling each recorded slice with the same streams must give the
+    rank's draws bitwise; the slices' keys must be the patients' cohort
+    indices (padding rows PAD_KEY), every trained patient in exactly one;
+    rank 0's files must hold the recorded draws. The largest difference
+    from phase 7's whole-bucket draws on one device is printed, not
+    checked: the potential's reductions are not batch-invariant on the
+    card (ROADMAP.md §C, C3). Returns (launch counts, numbers)."""
+    cfg_path = generate_experiment(
+        "smp", os.path.join(ROOT, "examples", "feature_all.json"), TRAIN_OPT,
+        Q=Q, R=R, folds=cfg.cv_fold_num)
+    new = ExperimentConfig.from_json(cfg_path)
+    for name in os.listdir(cfg.exp_train_dir):
+        if name.split("_")[1] in ("hyp", "init", "var", "flag", "num"):
+            shutil.copy(os.path.join(cfg.exp_train_dir, name), new.exp_train_dir)
+    out_dir = os.path.join(WORK, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    _, seconds = torchrun("sampler_shared_card", [
+        "hmc", out_dir, "hmc", "--cfg", cfg_path, "--device", dev.type, "--dist-backend",
+        "gloo", *SAMPLER_CLI, "--sampler", "hmc"])
+    ranks, counts = rank_counts(out_dir, "hmc")
+    for k in ("gram_lmcsm", "gram_lmcsm_bwd", "chol_solve", "qmat"):
+        check(counts[k] > 0, f"sampler_shared_card never launched {k}")
+    files = check_sampler_outputs(new, "hmc")
+    spec = new.spec()
+    prior = hier_gamma_prior(spec, beta_lam=new.beta_lam, device=dev)
+    index = {p: i for i, p in enumerate(new.pans())}
+    by_key, calls = {}, 0
+    t0 = time.perf_counter()
+    for r, rk in enumerate(ranks):
+        kw = dict(rk["hmc_kwargs"])
+        seed = kw.pop("seed")
+        z = np.load(os.path.join(out_dir, f"hmc.rank{r}.npz"))
+        for k in range(int(z["calls"])):
+            data = PatientData(*(torch.as_tensor(z[f"c{k}_{f}"], device=dev)
+                                 for f in PatientData._fields))
+            key = torch.as_tensor(z[f"c{k}_key"], device=dev)
+            res = hmc_patient(spec, data, torch.as_tensor(z[f"c{k}_theta0"], device=dev),
+                              st.Streams(seed, key, torch.zeros_like(key)), prior=prior, **kw)
+            got = z[f"c{k}_samples"]
+            check(np.array_equal(res.samples.cpu().numpy(), got),
+                  f"sampler_shared_card: one device samples rank {r}'s slice {k} to other bits")
+            for i, key_i in enumerate(z[f"c{k}_key"].tolist()):
+                if key_i != st.PAD_KEY:
+                    check(key_i not in by_key, f"patient key {key_i} sampled twice")
+                    by_key[key_i] = got[i]
+            calls += 1
+    check(sorted(by_key) == sorted(index[p] for p in files),
+          "sampler_shared_card: the slices' keys are not the trained patients' cohort indices")
+    for pan, draws in files.items():
+        check(np.array_equal(draws, by_key[index[pan]]),
+              f"{pan}: rank 0's file differs from the rank's recorded draws")
+    resample_s = time.perf_counter() - t0
+    worst, same = 0.0, 0
+    for pan, draws in files.items():
+        ref = hmc_draws[pan]
+        same += int(np.array_equal(draws, ref))
+        worst = max(worst, float(np.abs(draws - ref).max() / np.abs(ref).max()))
+    print(f"sampler_shared_card: {calls} slices over {RANKS_SHARED} ranks, each sampled to the "
+          f"rank's bits by one device with the same streams ({resample_s:.1f} s); {len(files)} "
+          f"patients keyed by cohort index; against the whole-bucket draws on one device: "
+          f"{same} of {len(files)} bitwise equal, largest difference over the scale "
+          f"{worst:.3e} (not checked: C3)")
+    return counts, dict(seconds=seconds, slices=calls, patients=len(files),
+                        whole_bucket_equal=same, whole_bucket_worst=worst,
+                        resample_seconds=resample_s)
+
+
+def examples(dev, run_s, large_s):
+    """The port's example entry points (medgp_tpu_torch/examples/) on the
+    card, each a process of its own: run_pipeline.sh and
+    train_large_patient.sh ran in phases 6 and 8 (`run_s`, `large_s`: their
+    seconds and launches); here launch_pod.py under `torchrun --standalone
+    --nproc-per-node 1` runs `run` on the first 16 patients of the staged
+    cohort (two folds), every output checked, and gen_example.sh writes
+    the canonical experiment over etl_to_run's cohort, without running it:
+    its exp_setup.json must hold LMC-SM Q=5, R=8, D=24, the hier-gamma
+    prior, eta and beta_lambda 0.01, 10 folds over every admission and
+    opt_prior2.json's budgets. Returns (launch counts, numbers)."""
+    synth = ExperimentConfig.from_json(os.path.join(
+        WORK, "exp", f"smoke_k7_q{Q}_r{R}_p2_e0.01", "config", "exp_setup.json"))
+    recs = load_cohort(synth.data_dir, synth.pans(), synth.feature_list)[:16]
+    write_reference_format_cohort(os.path.join(WORK, "data", "pod"), recs, synth.feature_list)
+    cfg_path = generate_experiment(
+        "pod", os.path.join(ROOT, "examples", "feature_all.json"), TRAIN_OPT,
+        Q=Q, R=R, folds=2, cohort="pod")
+    cfg = ExperimentConfig.from_json(cfg_path)
+    pod_s, counts, stdout, _ = run_example(
+        "launch_pod.py", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node=1", os.path.abspath(__file__), "--rank", "exec",
+                          "{out}", os.path.join(EXAMPLES, "launch_pod.py"), "--cfg",
+                          cfg_path, "--device", dev.type], tuple(KERNELS))
+    summary = run_summary("launch_pod.py", stdout)
+    check_train_outputs(cfg, recs)
+    check_mode_kernels(cfg, (-1, 0, 1))
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+    print(f"launch_pod.py: stage seconds {json.dumps(run_stage_seconds(cfg))}; summary "
+          f"{json.dumps(summary)}")
+
+    gen_root = os.path.join(WORK, "gen_example")
+    os.makedirs(os.path.join(gen_root, "data"), exist_ok=True)
+    os.symlink(os.path.join(WORK, "data", "mimic"),
+               os.path.join(gen_root, "data", "heart_failure"))
+    gen_s, _, _, _ = run_example(
+        "gen_example.sh", ["bash", os.path.join(EXAMPLES, "gen_example.sh")], (),
+        env=dict(DATA_ROOT=os.path.join(gen_root, "data"),
+                 EXP_ROOT=os.path.join(gen_root, "exp"), PYTHON=sys.executable))
+    gen = ExperimentConfig.from_json(os.path.join(
+        gen_root, "exp", "jmlr_k7_q5_r8_p2_e0.01", "config", "exp_setup.json"))
+    with open(os.path.join(EXAMPLES, "opt_prior2.json")) as f:
+        opt = json.load(f)
+    got = dict(kernel=gen.kernel, prior=gen.prior, Q=gen.Q, R=gen.R, D=gen.D, eta=gen.eta,
+               beta_lam=gen.beta_lam, folds=gen.cv_fold_num,
+               **{k: getattr(gen, k) for k in opt})
+    want = dict(kernel="LMC-SM", prior="hier-gamma", Q=5, R=8, D=D, eta=0.01, beta_lam=0.01,
+                folds=10, **opt)
+    check(got == want, f"gen_example.sh wrote {got}, not {want}")
+    cv = gen.cv_assign()
+    check(len(cv) == len(gen.pans()) and set(cv.tolist()) == set(range(10)),
+          f"gen_example.sh: {len(cv)} CV entries over {len(gen.pans())} admissions")
+    print(f"gen_example.sh: {os.path.relpath(gen.exp_top_dir, WORK)} over {len(gen.pans())} "
+          f"admissions in {gen_s:.2f} s: {json.dumps(got)}")
+    return counts, dict(
+        run_pipeline=run_s, train_large_patient=large_s,
+        launch_pod=dict(seconds=pod_s, patients=len(recs), summary=summary),
+        gen_example=dict(seconds=gen_s, admissions=len(gen.pans())),
+    )
+
+
 def rank_main(argv):
     """One rank of a shared-card phase, under torchrun (`--rank cli DIR
     ARGS...`: the CLI with ARGS, every train_one_patient call of
-    parallel/mesh.py recorded to DIR/train.rank{r}.npz; `--rank large DIR
-    DEVICE`: the row-sharded
+    parallel/mesh.py recorded to DIR/train.rank{r}.npz; `--rank hmc DIR
+    ARGS...`: the CLI with ARGS, every hmc_patient call of the runner (the
+    rank's slice, its streams and draws) recorded to DIR/hmc.rank{r}.npz;
+    `--rank large DIR DEVICE`: the row-sharded
     value+gradient of mesh_large_case over the ranks, gloo, on this rank's
-    DEVICE); writes DIR/{kind}.rank{r}.json with its launch counts."""
+    DEVICE; `--rank exec DIR -m MODULE ARGS...` or `--rank exec DIR SCRIPT
+    ARGS...`: the module's main() or the script as `python` would run it,
+    an example entry point's process (run_example), with its seconds and
+    peak device memory, RANK 0 outside torchrun); writes
+    DIR/{kind}.rank{r}.json with its launch counts, also when the run
+    raises, whose exception passes on as it is."""
     kind, out_dir = argv[0], argv[1]
-    rank = int(os.environ["RANK"])
+    rank = int(os.environ.get("RANK", "0"))
     result = {}
     reset_launches()
-    if kind == "cli":
+    t0 = time.perf_counter()
+    try:
+        rank_run(kind, out_dir, rank, argv[2:], result)
+    finally:
+        if kind == "exec":
+            result.update(seconds=time.perf_counter() - t0,
+                          peak_bytes=torch.cuda.max_memory_allocated()
+                          if torch.cuda.is_initialized() else 0)
+        with open(os.path.join(out_dir, f"{kind}.rank{rank}.json"), "w") as f:
+            json.dump(dict(counts=read_launches(), **result), f)
+    return 0
+
+
+def rank_run(kind, out_dir, rank, rest, result):
+    """rank_main's run of one kind; its numbers go into `result`."""
+    if kind == "exec":
+        if rest[0] == "-m":
+            sys.argv = list(rest[1:])
+            importlib.import_module(rest[1]).main()
+        else:
+            sys.argv = list(rest)
+            runpy.run_path(rest[0], run_name="__main__")
+    elif kind == "cli":
         own, calls = mesh_module.train_one_patient, []
 
         def recording(spec, data, inits, **kw):
@@ -2105,14 +2373,33 @@ def rank_main(argv):
 
         mesh_module.train_one_patient = recording
         try:
-            cli(argv[2:])
+            cli(rest)
         finally:
             mesh_module.train_one_patient = own
         np.savez(os.path.join(out_dir, f"train.rank{rank}.npz"), calls=len(calls),
                  **{f"c{k}_{name}": x.cpu().numpy() for k, c in enumerate(calls)
                     for name, x in c.items()})
+    elif kind == "hmc":
+        own, calls, kwargs = runner.hmc_patient, [], {}
+
+        def recording(spec, data, theta0, streams, prior=None, **kw):
+            res = own(spec, data, theta0, streams, prior=prior, **kw)
+            calls.append(dict(zip(PatientData._fields, data), theta0=theta0,
+                              key=streams.key, samples=res.samples))
+            kwargs.update(kw, seed=streams.seed)
+            return res
+
+        runner.hmc_patient = recording
+        try:
+            cli(rest)
+        finally:
+            runner.hmc_patient = own
+        np.savez(os.path.join(out_dir, f"hmc.rank{rank}.npz"), calls=len(calls),
+                 **{f"c{k}_{name}": x.cpu().numpy() for k, c in enumerate(calls)
+                    for name, x in c.items()})
+        result["hmc_kwargs"] = kwargs
     else:
-        dev = rank_device(argv[2])
+        dev = rank_device(rest[0])
         init_distributed(backend="gloo", device=dev)
         try:
             mesh = cohort_mesh(dev)
@@ -2125,15 +2412,12 @@ def rank_main(argv):
             t0 = time.perf_counter()
             v, g, ok = f(theta)
             torch.cuda.synchronize()
-            result = dict(seconds=time.perf_counter() - t0, ok=bool(ok),
+            result.update(seconds=time.perf_counter() - t0, ok=bool(ok),
                           peak_bytes=torch.cuda.max_memory_allocated() - base)
             np.savez(os.path.join(out_dir, f"large.rank{rank}.npz"), value=v.cpu().numpy(),
                      grad=g.cpu().numpy())
         finally:
             dist.destroy_process_group()
-    with open(os.path.join(out_dir, f"{kind}.rank{rank}.json"), "w") as f:
-        json.dump(dict(counts=read_launches(), **result), f)
-    return 0
 
 
 def synthetic_mimic(out_dir, seed):
@@ -2617,8 +2901,13 @@ def main():
     phase_done("mesh_shared_card")
     ls_c, large_sc = large_sharded_shared_card(dev)
     phase_done("large_sharded_shared_card")
+    ss_c, sampler_sc = sampler_shared_card(dev, cfg, hmc_draws)
+    phase_done("sampler_shared_card")
     etl_c, etl_out = etl_to_run(dev)
     phase_done("etl_to_run")
+    ex_c, ex_out = examples(dev, dict(seconds=run_s, launches=run_c),
+                            dict(seconds=lg_train["seconds"], launches=lt_c))
+    phase_done("examples")
 
     by_path = {
         name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
@@ -2629,7 +2918,8 @@ def main():
                **{f"large_{n}": c[name] for n, (c, _) in lg_evals.items()},
                **{k: c[name] for k, c in mw_c.items()},
                "mesh_run_shared_card": ms_c[name],
-               "large_sharded_shared_card": ls_c[name], "run_etl": etl_c[name]}
+               "large_sharded_shared_card": ls_c[name], "hmc_shared_card": ss_c[name],
+               "run_etl": etl_c[name], "launch_pod": ex_c[name]}
         for name in KERNELS
     }
     src = "medgp_tpu_torch/csrc/"
@@ -2675,7 +2965,7 @@ def main():
         "potential_rows": sampler_rows,
         "hmc_phases": {k: dict(seconds=v[0], **v[2]) for k, v in samplers.items()},
         "run_sampler": dict(seconds=rs_s, stages=rs_stages),
-        "gaussian": gauss, "bench_protocol": bench_rates,
+        "gaussian": gauss, "bench_protocol": bench_rates, "shared_card": sampler_sc,
     }}))
     print(json.dumps({"large_patient": {
         "blocked_vs_dense": lg_dense, "train": lg_train,
@@ -2685,6 +2975,7 @@ def main():
         "world1": mesh_w1, "run_shared_card": mesh_sc, "large_shared_card": large_sc,
     }}))
     print(json.dumps({"etl_to_run": etl_out}))
+    print(json.dumps({"examples": ex_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

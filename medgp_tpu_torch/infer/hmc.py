@@ -18,9 +18,13 @@ trajectory is a loop of `max_steps` steps in which each row freezes after
 its own step count (`torch.where`), so a transition reads nothing back from
 the device, as JAX's `lax.scan` does not.
 
-Randomness comes from a `torch.Generator` on the rows' device, passed in.
-Its streams differ from `jax.random`'s, so the samplers agree with the JAX
-package in distribution and their deterministic parts agree exactly.
+Randomness comes from the rows' counter-based streams
+(:mod:`medgp_tpu_torch.infer.streams`): every draw is a function of the
+seed, the patient, the chain, the transition and the draw's purpose, as the
+JAX package's per-row keys make it, so a patient's draws do not depend on
+its batch mates. The bits differ from `jax.random`'s, so the samplers agree
+with the JAX package in distribution and their deterministic parts agree
+exactly.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from medgp_tpu_torch.infer import streams as st
 from medgp_tpu_torch.models.gp import PatientData, nlml_fn, posterior_at
 from medgp_tpu_torch.models.params import KernelSpec
 from medgp_tpu_torch.models.priors import PriorSpec
@@ -122,7 +127,8 @@ def two_phase_warmup(
     square root of the median inverse mass of the free hypers.
 
     `kernel(state, eps (k,), inv_mass (k, H)) -> (state, accept_prob (k,))`
-    draws from its own generator; `theta_of(state)` is the (k, H) position.
+    draws from the rows' streams at its own transition count;
+    `theta_of(state)` is the (k, H) position.
     Returns (state, eps (k,), inv_mass (k, H))."""
     th0 = theta_of(state0)
     k, H = th0.shape
@@ -177,7 +183,7 @@ def free_mask(grad_mask, H, like):
 def hmc_sample(
     potential_grad: Potential,
     theta0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
     num_warmup: int = 200,
     num_samples: int = 200,
     num_leapfrog: int = 16,
@@ -190,26 +196,28 @@ def hmc_sample(
     """Sample exp(-U) for each of the k rows of theta0 (k, H), given
     `potential_grad(theta (k, H)) -> (U (k,), dU (k, H))` (hmc.py:176-260).
 
-    One transition draws momenta N(0, M) (zero on clamped hypers), a step
-    count uniform in 1..num_leapfrog per row (or num_leapfrog), runs the
-    trajectory, and accepts with probability min(1, exp(-dH)); a non-finite
-    dH counts as +inf and dH > divergence_threshold is a divergence, never
-    accepted. Each transition evaluates the potential `num_leapfrog` times
-    for all rows; the state carries the gradient, so nothing else is
-    evaluated."""
-    k, H = theta0.shape
-    dtype, dev = theta0.dtype, theta0.device
+    Transition t (warmup and sampling counted together) draws from each
+    row's stream at step t: momenta N(0, M) (zero on clamped hypers), a
+    step count uniform in 1..num_leapfrog (or num_leapfrog) and the accept
+    uniform. It runs the trajectory and accepts with probability
+    min(1, exp(-dH)); a non-finite dH counts as +inf and dH >
+    divergence_threshold is a divergence, never accepted. Each transition
+    evaluates the potential `num_leapfrog` times for all rows; the state
+    carries the gradient, so nothing else is evaluated."""
+    H, dtype = theta0.shape[1], theta0.dtype
     gmask = free_mask(grad_mask, H, theta0)
+    step = 0
 
     def kernel(state, eps, inv_mass):
+        nonlocal step
         theta, u, g = state
-        p = torch.randn((k, H), generator=gen, device=dev, dtype=dtype)
-        p = p / torch.sqrt(inv_mass) * gmask
-        ke0 = 0.5 * torch.sum(inv_mass * p * p, dim=-1)
-        n_steps = (
-            torch.randint(1, num_leapfrog + 1, (k,), generator=gen, device=dev)
-            if jitter_steps else num_leapfrog
+        (m0, m1), (s0, _), (a0, _) = st.words(
+            streams, step, ((st.HMC_MOMENTUM, H), (st.HMC_STEPS, 1), (st.HMC_ACCEPT, 1))
         )
+        step += 1
+        p = st.normal(m0, m1, dtype) / torch.sqrt(inv_mass) * gmask
+        ke0 = 0.5 * torch.sum(inv_mass * p * p, dim=-1)
+        n_steps = 1 + st.below(s0[:, 0], num_leapfrog) if jitter_steps else num_leapfrog
         th2, p2, g2, u2 = _leapfrog(
             potential_grad, theta, p, g, u, eps, inv_mass, n_steps,
             num_leapfrog, gmask,
@@ -221,7 +229,7 @@ def hmc_sample(
         accept_prob = torch.where(
             torch.isfinite(dH), torch.clamp(torch.exp(-dH), max=1.0), 0.0
         )
-        take = (torch.rand(k, generator=gen, device=dev, dtype=dtype) < accept_prob) & ~divergent
+        take = (st.uniform(a0[:, 0], dtype) < accept_prob) & ~divergent
         t = take[:, None]
         state = (
             torch.where(t, th2, theta), torch.where(take, u2, u),
@@ -302,15 +310,16 @@ def per_patient(res: NamedTuple, B: int, C: int):
     ))
 
 
-def chain_starts(theta0, gen, num_chains, gmask):
+def chain_starts(theta0, streams, num_chains, gmask):
     """(B, C, H) chain starts: theta0 (B, C, H) as given, or (B, H) plus a
-    0.01 N(0, 1) jitter per chain on the free hypers (hmc.py:300-307)."""
+    0.01 N(0, 1) jitter per chain on the free hypers (hmc.py:300-307),
+    drawn from each (patient, chain) stream's START slot; `streams` are
+    the B patients'."""
     if theta0.dim() == 3:
         return theta0
     B, H = theta0.shape
-    jitter = 0.01 * torch.randn(
-        (B, num_chains, H), generator=gen, device=theta0.device, dtype=theta0.dtype
-    )
+    ((w0, w1),) = st.words(st.with_chains(streams, num_chains), 0, ((st.START, H),))
+    jitter = 0.01 * st.normal(w0, w1, theta0.dtype).reshape(B, num_chains, H)
     if gmask is not None:
         jitter = jitter * gmask
     return theta0[:, None, :] + jitter
@@ -320,21 +329,23 @@ def hmc_patient(
     spec: KernelSpec,
     data: PatientData,
     theta0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
     prior: Optional[PriorSpec] = None,
     num_chains: int = 4,
     **hmc_kwargs,
 ) -> HMCResult:
     """Multi-chain HMC for a batch of B patients (data (B, n)), all chains
     of all patients as one batch of rows (hmc.py:287-311). theta0 is (B, H)
-    (every chain starts from it, jittered) or (B, C, H). The prior is one
-    (H,) prior shared by the patients. Every tensor field of the result
-    leads with (B, C)."""
+    (every chain starts from it, jittered) or (B, C, H); `streams` are the
+    B patients' (`streams.patient_streams`), each chain a stream of its
+    own. The prior is one (H,) prior shared by the patients. Every tensor
+    field of the result leads with (B, C)."""
     gmask = None if prior is None else prior.grad_mask()
-    theta0 = chain_starts(theta0, gen, num_chains, gmask)
+    theta0 = chain_starts(theta0, streams, num_chains, gmask)
     B, C, H = theta0.shape
     pg = make_potential(spec, repeat_rows(data, C), prior)
-    res = hmc_sample(pg, theta0.reshape(B * C, H), gen, grad_mask=gmask, **hmc_kwargs)
+    res = hmc_sample(pg, theta0.reshape(B * C, H), st.with_chains(streams, C),
+                     grad_mask=gmask, **hmc_kwargs)
     return per_patient(res, B, C)
 
 

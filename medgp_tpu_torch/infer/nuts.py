@@ -29,6 +29,13 @@ as under vmap, and rows that are done are evaluated at the draw's start and
 their results discarded. Every row active at doubling d has depth d, so its
 subtree has 2^d leaves. Each loop's "any row active" test is one read from
 the device; `NUTSResult.host_reads` counts them.
+
+Each transition reads its draws from the rows' streams
+(:mod:`medgp_tpu_torch.infer.streams`) at its own step, by position: the
+momentum, then per doubling d the direction and the accept uniform at
+element d, and per leaf n of doubling d the sub-tree uniform at element
+2^d - 1 + n. A row that is done draws nothing further, and its draws do
+not depend on how long its batch mates run.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from medgp_tpu_torch.infer import streams as st
 from medgp_tpu_torch.infer.hmc import (
     Potential, chain_starts, free_mask, make_potential, per_patient, repeat_rows,
     two_phase_warmup,
@@ -122,7 +130,8 @@ def _nuts_transition(
     theta0: torch.Tensor,
     u0: torch.Tensor,
     g0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
+    step: int,
     eps: torch.Tensor,
     inv_mass: torch.Tensor,
     gmask: torch.Tensor,
@@ -130,20 +139,21 @@ def _nuts_transition(
     divergence_threshold: float,
     depth_cap=None,
 ):
-    """One NUTS draw for every row (nuts.py:131-331). `depth_cap` (an int or
-    (k,)) bounds the doublings below `max_depth`. Returns (theta', u', g',
-    accept_stat, divergent, depth, n_leapfrog, host_reads)."""
+    """One NUTS draw for every row (nuts.py:131-331), transition `step` of
+    the rows' streams. `depth_cap` (an int or (k,)) bounds the doublings
+    below `max_depth`. Returns (theta', u', g', accept_stat, divergent,
+    depth, n_leapfrog, host_reads)."""
     k, H = theta0.shape
     dtype, dev = theta0.dtype, theta0.device
 
     def kinetic(r):
         return 0.5 * torch.sum(inv_mass * r * r, dim=-1)
 
-    def uniform():
-        return torch.rand(k, generator=gen, device=dev, dtype=dtype)
-
-    r0 = torch.randn((k, H), generator=gen, device=dev, dtype=dtype)
-    r0 = r0 / torch.sqrt(inv_mass) * gmask
+    (m0, m1), (dir_w, _), (acc_w, _), (leaf_w, _) = st.words(streams, step, (
+        (st.NUTS_MOMENTUM, H), (st.NUTS_DIRECTION, max_depth), (st.NUTS_ACCEPT, max_depth),
+        (st.NUTS_SUBTREE, (1 << max_depth) - 1),
+    ))
+    r0 = st.normal(m0, m1, dtype) / torch.sqrt(inv_mass) * gmask
     h0 = u0 + kinetic(r0)
     cap = torch.clamp(
         torch.as_tensor(max_depth if depth_cap is None else depth_cap, device=dev),
@@ -151,8 +161,9 @@ def _nuts_transition(
     )
     reads = 0
 
-    def build_subtree(start, eps_signed, n_leaves, in_tree):
+    def build_subtree(start, eps_signed, depth, in_tree):
         nonlocal reads
+        n_leaves = 1 << depth
         theta_s, r_s, g_s = start
         false = torch.zeros(k, dtype=torch.bool, device=dev)
         sub = dict(
@@ -171,7 +182,7 @@ def _nuts_transition(
             reads += 1
             if not bool(active.any()):
                 break
-            log_u = torch.log(uniform())
+            log_u = torch.log(st.uniform(leaf_w[:, n_leaves - 1 + n], dtype))
             r_half = sub["r"] - 0.5 * e * sub["g"]
             theta1 = sub["theta"] + e * inv_mass * r_half * gmask
             u1, g1 = potential_grad(torch.where(active[:, None], theta1, theta0))
@@ -214,8 +225,8 @@ def _nuts_transition(
         reads += 1
         if not bool(active.any()):
             break
-        going_right = uniform() < 0.5
-        log_u = torch.log(uniform())
+        going_right = st.uniform(dir_w[:, depth], dtype) < 0.5
+        log_u = torch.log(st.uniform(acc_w[:, depth], dtype))
         right = going_right[:, None]
         eps_signed = torch.where(going_right, eps, -eps)
         start = (
@@ -223,7 +234,7 @@ def _nuts_transition(
             torch.where(right, tr["r_plus"], tr["r_minus"]),
             torch.where(right, tr["g_plus"], tr["g_minus"]),
         )
-        sub = build_subtree(start, eps_signed, 1 << depth, active)
+        sub = build_subtree(start, eps_signed, depth, active)
         sub_ok = ~sub["turning"] & ~sub["diverging"]
 
         # biased progressive sampling across the doubling
@@ -265,7 +276,7 @@ def _nuts_transition(
 def nuts_sample(
     potential_grad: Potential,
     theta0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
     num_warmup: int = 200,
     num_samples: int = 200,
     max_depth: int = 6,
@@ -290,15 +301,16 @@ def nuts_sample(
     k, H = theta0.shape
     dtype, dev = theta0.dtype, theta0.device
     gmask = free_mask(grad_mask, H, theta0)
-    reads = 0
+    reads = step = 0
 
     def kernel(state, eps, inv_mass, depth_cap):
-        nonlocal reads
+        nonlocal reads, step
         theta, u, g = state
         th, u1, g1, acc, div, depth, n_lf, r = _nuts_transition(
-            potential_grad, theta, u, g, gen, eps, inv_mass, gmask,
+            potential_grad, theta, u, g, streams, step, eps, inv_mass, gmask,
             max_depth, divergence_threshold, depth_cap=depth_cap,
         )
+        step += 1
         reads += r
         return (th, u1, g1), acc, div, depth, n_lf
 
@@ -350,7 +362,7 @@ def nuts_patient(
     spec,
     data,
     theta0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
     prior=None,
     num_chains: int = 4,
     **nuts_kwargs,
@@ -359,8 +371,9 @@ def nuts_patient(
     patients as one batch of rows; the contract of
     :func:`medgp_tpu_torch.infer.hmc.hmc_patient`."""
     gmask = None if prior is None else prior.grad_mask()
-    theta0 = chain_starts(theta0, gen, num_chains, gmask)
+    theta0 = chain_starts(theta0, streams, num_chains, gmask)
     B, C, H = theta0.shape
     pg = make_potential(spec, repeat_rows(data, C), prior)
-    res = nuts_sample(pg, theta0.reshape(B * C, H), gen, grad_mask=gmask, **nuts_kwargs)
+    res = nuts_sample(pg, theta0.reshape(B * C, H), st.with_chains(streams, C),
+                      grad_mask=gmask, **nuts_kwargs)
     return per_patient(res, B, C)

@@ -14,6 +14,8 @@ the posterior mean are shared.
     mask and log s pinned at LOG_S_CLAMP.
   * Draws whose objective is not finite (a failed factorization) are masked
     out of the step's average.
+  * Step i's Monte Carlo draws come from each row's stream at step i, the
+    final draws from its VI_DRAWS slot (:mod:`medgp_tpu_torch.infer.streams`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from medgp_tpu_torch.infer import streams as st
 from medgp_tpu_torch.infer.hmc import Potential, free_mask, make_potential, repeat_rows
 from medgp_tpu_torch.models.gp import PatientData
 from medgp_tpu_torch.models.params import KernelSpec
@@ -87,7 +90,7 @@ def elbo_and_grad(
 def advi_fit(
     potential_grad: Potential,
     theta0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
     num_steps: int = 400,
     num_mc: int = 4,
     num_samples: int = 200,
@@ -109,7 +112,8 @@ def advi_fit(
     vel = torch.zeros_like(mom)
     trace = []
     for i in range(num_steps):
-        eps = torch.randn((k, num_mc, H), generator=gen, device=dev, dtype=dtype)
+        ((w0, w1),) = st.words(streams, i, ((st.VI_EPS, num_mc * H),))
+        eps = st.normal(w0, w1, dtype).reshape(k, num_mc, H)
         elbo, dm, dls = elbo_and_grad(potential_grad, m, log_s, eps, gmask)
         g = torch.cat([dm, dls], dim=-1)  # ascend: Adam on -ELBO's gradient
         g = torch.where(torch.isfinite(elbo)[:, None], -g, 0.0)
@@ -126,7 +130,8 @@ def advi_fit(
     trace = torch.stack(trace, dim=1)
     tail = trace[:, -max(num_steps // 4, 1):]
     finite = torch.isfinite(tail)
-    draws = torch.randn((k, num_samples, H), generator=gen, device=dev, dtype=dtype)
+    ((w0, w1),) = st.words(streams, 0, ((st.VI_DRAWS, num_samples * H),))
+    draws = st.normal(w0, w1, dtype).reshape(k, num_samples, H)
     return VIResult(
         mean=m, log_std=log_s,
         samples=m[:, None, :] + torch.exp(log_s)[:, None, :] * draws * gmask,
@@ -140,14 +145,14 @@ def vi_patient(
     spec: KernelSpec,
     data: PatientData,
     theta0: torch.Tensor,
-    gen: torch.Generator,
+    streams: st.Streams,
     prior: Optional[PriorSpec] = None,
     num_mc: int = 4,
     **vi_kwargs,
 ) -> VIResult:
     """ADVI posterior for a batch of B patients (data (B, n), theta0
-    (B, H)) over the MAP/HMC potential (vi.py:162-175); the result's
-    fields lead with B."""
+    (B, H)) over the MAP/HMC potential (vi.py:162-175), one stream per
+    patient; the result's fields lead with B."""
     pg = make_potential(spec, repeat_rows(data, num_mc), prior)
     gmask = None if prior is None else prior.grad_mask()
-    return advi_fit(pg, theta0, gen, num_mc=num_mc, grad_mask=gmask, **vi_kwargs)
+    return advi_fit(pg, theta0, streams, num_mc=num_mc, grad_mask=gmask, **vi_kwargs)

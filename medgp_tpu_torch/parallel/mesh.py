@@ -194,8 +194,8 @@ def local_rows(mesh: CohortMesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def _split(mesh: CohortMesh, x):
-    """`local_rows` of a tensor, field by field of a NamedTuple; any other
-    argument (a generator) passes as it is."""
+    """`local_rows` of a tensor, field by field of a NamedTuple (the
+    samplers' `Streams` too); any other argument passes as it is."""
     if isinstance(x, torch.Tensor):
         return local_rows(mesh, x)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -269,9 +269,9 @@ def sharded_test_step(run_one, mesh: CohortMesh, n_rep_args: int = 0):
 
 
 def sharded_sampler_step(run_one, mesh: CohortMesh):
-    """`fn(theta0, t, y, meta, mask, gen)` of `run_one` (a partial of a
-    sampler): each rank samples its slice with its own generator `gen`
-    (the JAX package splits per-patient keys instead)."""
+    """`fn(theta0, t, y, meta, mask, streams)` of `run_one` (a partial of a
+    sampler): each rank samples its slice of the rows with its slice of
+    the per-patient streams, as the JAX package splits per-row keys."""
     return sharded(run_one, mesh)
 
 

@@ -37,6 +37,7 @@ from medgp_tpu_torch.infer.diagnostics import (
     invariant_posterior_mean, summarize_diagnostics,
 )
 from medgp_tpu_torch.infer.hmc import hmc_patient
+from medgp_tpu_torch.infer.streams import PAD_KEY, patient_streams
 from medgp_tpu_torch.infer.large_train import train_one_large_patient
 from medgp_tpu_torch.infer.map_train import train_one_patient
 from medgp_tpu_torch.infer.nuts import nuts_patient
@@ -328,12 +329,16 @@ def hmc_cohort(
     """Posterior inference for every trained patient, started at its MAP
     hypers (train_hyp_*.bin) (medgp_tpu/parallel/runner.py:394-635), on
     one device or sharded over the ranks of the mesh as `train_cohort`
-    shards (runner.py:701-770 there): each rank samples its slice of every
-    bucket with its own generator, seeded `seed + rank`, so one rank's
-    draws are those of a run without a mesh. The draws depend on the world
-    anyway, so here remainders are promoted into the next-longer bucket
-    (`pack_patients(batch_multiple=)`), as the JAX runner does, which
-    saves dummy chains. `sampler` is "hmc" (jittered trajectories, `num_leapfrog`),
+    shards (runner.py:701-770 there). Every (patient, chain) row draws from
+    its own stream (`infer/streams.py`), keyed by `seed` and the patient's
+    index in `cfg.pans()` (padding rows by PAD_KEY), as the JAX runner
+    gives every row its own key: a patient's draws depend neither on its
+    rank nor on its batch mates. No remainder is promoted into a longer
+    bucket (the JAX runner promotes): as in `train_cohort` and
+    `test_cohort`, each patient keeps its padded length at any world, and
+    a bucket, capped by the W ranks' memory together, is padded with at
+    most W - 1 dummies.
+    `sampler` is "hmc" (jittered trajectories, `num_leapfrog`),
     "nuts" (adaptive trajectories, `max_depth`) or "vi" (mean-field ADVI,
     one chain: `num_warmup` optimization steps, `num_samples` draws from
     the fitted q). The hier-gamma prior applies to LMC-SM experiments with
@@ -367,7 +372,7 @@ def hmc_cohort(
     mesh = mesh_or_none(use_mesh, device)
     write = write and _writes(mesh)
     W = _world(mesh)
-    gen = torch.Generator(device=device).manual_seed(seed + (0 if mesh is None else mesh.rank))
+    cohort_index = {p: i for i, p in enumerate(cfg.pans())}
     metrics = stage_metrics(cfg)
 
     thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
@@ -388,26 +393,28 @@ def hmc_cohort(
     }
     trained = [r for r in records if r.pan in by_pan and 0 < r.n_obs <= thr]
     chains = 1 if sampler == "vi" else num_chains
+    # a bucket's rows are split over the ranks: its cap is the W ranks'
+    # memory together, each planned from the least free of any rank
     batches = pack_patients(
         trained, max_batch=round_up(max_batch, W), device=device,
-        footprint_mult=2 * chains, batch_multiple=W, free_bytes=_plan_bytes(mesh),
+        footprint_mult=2 * chains, free_bytes=None if mesh is None else W * _plan_bytes(mesh),
     )
 
-    def run_one(theta0, t, y, meta, mask, g):
+    def run_one(theta0, t, y, meta, mask, streams):
         data = PatientData(t, y, meta, mask)
         if sampler == "vi":
             return vi_patient(
-                spec, data, theta0, g, prior=prior,
+                spec, data, theta0, streams, prior=prior,
                 num_steps=num_warmup, num_samples=num_samples,
             )
         if sampler == "nuts":
             return nuts_patient(
-                spec, data, theta0, g, prior=prior, num_chains=num_chains,
+                spec, data, theta0, streams, prior=prior, num_chains=num_chains,
                 num_warmup=num_warmup, num_samples=num_samples,
                 init_step_size=init_step_size, max_depth=max_depth,
             )
         return hmc_patient(
-            spec, data, theta0, g, prior=prior, num_chains=num_chains,
+            spec, data, theta0, streams, prior=prior, num_chains=num_chains,
             num_warmup=num_warmup, num_samples=num_samples,
             init_step_size=init_step_size, num_leapfrog=num_leapfrog,
         )
@@ -420,12 +427,14 @@ def hmc_cohort(
             np.stack([by_pan[p] for p in b.pans]).astype(np.float32), device=device
         )
         data = batch_data(b, device)
-        if mesh is not None:
-            Bp = round_up(B, W)
+        Bp = round_up(B, W)
+        if Bp > B:
             data = pad_batch_to(data, Bp)
             theta0 = torch.cat([theta0, theta0.new_zeros((Bp - B, theta0.shape[1]))])
+        streams = patient_streams(
+            seed, [cohort_index[p] for p in b.pans] + [PAD_KEY] * (Bp - B), device)
         t0 = time.perf_counter()
-        res = take_rows(run_bucket(theta0, *data, gen), B)
+        res = take_rows(run_bucket(theta0, *data, streams), B)
         samples_all = res.samples.cpu().numpy()  # waits for the device
         dt = time.perf_counter() - t0
         log.info(

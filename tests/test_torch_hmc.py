@@ -7,11 +7,12 @@ take the same numpy inputs on both sides and are held exactly: float64
 (`jax.enable_x64()`) at 1e-8 where the arithmetic is the same but for the
 order of reductions; float32 at the objective's tolerances (values 1e-4
 relative, gradients 2e-3 of their scale, tests/test_torch_objective.py).
-The random streams differ (`torch.Generator` against `jax.random`), so the
-samplers themselves are held in distribution: at the JAX tests' own
-Gaussian targets and tolerances (tests/test_hmc.py), and on a GP patient,
-where the port's and the JAX package's posterior means, from the same MAP
-start, must agree within 4 combined Monte-Carlo standard errors.
+The random streams differ (Philox per row, `infer/streams.py`, against
+`jax.random`), so the samplers themselves are held in distribution: at the
+JAX tests' own Gaussian targets and tolerances (tests/test_hmc.py), and on
+a GP patient, where the port's and the JAX package's posterior means, from
+the same MAP start, must agree within 4 combined Monte-Carlo standard
+errors.
 """
 
 import numpy as np
@@ -32,6 +33,7 @@ from medgp_tpu.models import priors as jpriors  # noqa: E402
 from medgp_tpu_torch.infer import diagnostics as tdiag  # noqa: E402
 from medgp_tpu_torch.infer import hmc as thmc  # noqa: E402
 from medgp_tpu_torch.infer.scg import scg_minimize  # noqa: E402
+from medgp_tpu_torch.infer.streams import patient_streams  # noqa: E402
 from medgp_tpu_torch.models import gp as tgp  # noqa: E402
 from medgp_tpu_torch.models import params as tparams  # noqa: E402
 from medgp_tpu_torch.models import priors as tpriors  # noqa: E402
@@ -380,7 +382,7 @@ def gaussian_potential(x):
 def test_gaussian_target_moments():
     """tests/test_hmc.py:21-39: N(mu, diag(sigma^2)) recovered."""
     res = thmc.hmc_sample(
-        gaussian_potential, torch.zeros(1, 3), torch.Generator().manual_seed(0),
+        gaussian_potential, torch.zeros(1, 3), patient_streams(0, [0]),
         num_warmup=500, num_samples=2000, num_leapfrog=16, init_step_size=0.1,
     )
     s = res.samples[0].numpy()
@@ -394,7 +396,7 @@ def test_step_size_adapts_toward_target():
     """tests/test_hmc.py:42-55."""
     res = thmc.hmc_sample(
         lambda x: (0.5 * torch.sum(x**2, -1), x), torch.zeros(1, 5),
-        torch.Generator().manual_seed(1), num_warmup=400, num_samples=400,
+        patient_streams(1, [0]), num_warmup=400, num_samples=400,
         num_leapfrog=8, init_step_size=1e-4, target_accept=0.8,
     )
     assert float(res.step_size) > 1e-2
@@ -428,7 +430,7 @@ def test_clamped_hypers_stay_fixed():
     )
     res = thmc.hmc_patient(
         spec, tdata(arrs), torch.as_tensor(theta0)[None],
-        torch.Generator().manual_seed(3), prior=prior, num_chains=2,
+        patient_streams(3, [0]), prior=prior, num_chains=2,
         num_warmup=50, num_samples=50, num_leapfrog=6, init_step_size=0.005,
     )
     assert res.samples.shape == (1, 2, 50, spec.n_hyp)
@@ -501,7 +503,7 @@ def test_gp_posterior_means_match_jax():
     ref = jax.jit(lambda d, th, key: jhmc.hmc_patient(jspec, d, th, key, prior=jp, **kw))(
         jdata(arrs), jnp.asarray(theta_map), jax.random.key(2))
     res = thmc.hmc_patient(spec, tdata(arrs), torch.as_tensor(theta_map)[None],
-                           torch.Generator().manual_seed(2), prior=tp, **kw)
+                           patient_streams(2, [0]), prior=tp, **kw)
     assert float(res.accept_rate.min()) > 0.3
     assert torch.isfinite(res.samples).all()
     assert_means_within_mc_error(spec, res.samples[0].numpy(), np.asarray(ref.samples))

@@ -29,8 +29,10 @@ dummies):
     rank's the least (`worker.plan_budgets`): every rank forms the
     buckets and the large patient's row blocks that the least budget
     gives;
-  * the sampler draws bitwise: rank r's are those of one process that
-    samples slice r of every padded bucket with a generator seeded r;
+  * the sampler draws of HMC, NUTS and VI bitwise: every patient's are
+    those of the one-rank run, which samples whole buckets (each
+    (patient, chain) draws from its own stream, keyed by the patient's
+    cohort index, so neither the rank nor the batch mates change them);
   * a patient of 256 observations above the large-patient threshold
     trains by row blocks over the ranks at P = 8 (the least budget's
     plan, which one rank makes too): one `train_large` record with
@@ -52,14 +54,9 @@ from medgp_tpu_torch.config.experiment import ExperimentConfig  # noqa: E402
 from medgp_tpu_torch.data import formats  # noqa: E402
 from medgp_tpu_torch.data.cohort import load_cohort, pack_patients  # noqa: E402
 from medgp_tpu_torch.evaluation.evals import eval_cohort, summarize  # noqa: E402
-from medgp_tpu_torch.infer.hmc import hmc_patient  # noqa: E402
-from medgp_tpu_torch.models.gp import PatientData  # noqa: E402
 from medgp_tpu_torch.models.params import LMCSMSpec  # noqa: E402
-from medgp_tpu_torch.models.priors import hier_gamma_prior  # noqa: E402
-from medgp_tpu_torch.parallel.mesh import pad_batch_to, round_up  # noqa: E402
-from medgp_tpu_torch.parallel.runner import (  # noqa: E402
-    MAX_BATCH, TRAIN_MAX_BATCH, batch_data,
-)
+from medgp_tpu_torch.parallel.mesh import round_up  # noqa: E402
+from medgp_tpu_torch.parallel.runner import MAX_BATCH, TRAIN_MAX_BATCH  # noqa: E402
 from medgp_tpu_torch.utils.hbm import train_batch_cap  # noqa: E402
 from tests import torch_mp_worker as worker  # noqa: E402
 
@@ -199,49 +196,22 @@ def test_no_rank_makes_a_square_buffer(runs, W):
         assert 0 < int(rank["large_largest"]) < min(n * n, n * (n + b) // 2)
 
 
-def sampler_reference(cfg, W):
-    """Rank r's draws of `hmc_cohort` over W ranks, made by one process:
-    every bucket as the ranks pack it (from the least budget, BUCKET_LOW),
-    padded to a multiple of W, and slice r of it sampled with a generator
-    seeded r (hmc_cohort's seed + rank, seed 0), bucket after bucket."""
-    spec = cfg.spec()
-    recs = load_cohort(cfg.data_dir, cfg.pans(), cfg.feature_list)
-    pans, hyps = formats.read_train_kernels(cfg.exp_train_dir, [r.pan for r in recs])
-    by_pan = dict(zip(pans, hyps))
-    prior = hier_gamma_prior(spec, beta_lam=cfg.beta_lam) if cfg.prior_index == 2 else None
-    batches = pack_patients([r for r in recs if r.pan in by_pan],
-                            max_batch=round_up(32, W), footprint_mult=2 * worker.HMC["num_chains"],
-                            batch_multiple=W, free_bytes=worker.BUCKET_LOW)
-    gens = [torch.Generator().manual_seed(r) for r in range(W)]
-    out = {}
-    for b in batches:
-        B = len(b)
-        m = round_up(B, W) // W
-        data = pad_batch_to(batch_data(b, torch.device("cpu")), m * W)
-        theta0 = torch.as_tensor(np.stack([by_pan[p] for p in b.pans]).astype(np.float32))
-        theta0 = torch.cat([theta0, theta0.new_zeros((m * W - B, theta0.shape[1]))])
-        for r in range(W):
-            rows = slice(r * m, (r + 1) * m)
-            res = hmc_patient(spec, PatientData(*(x[rows] for x in data)), theta0[rows],
-                              gens[r], prior=prior, init_step_size=0.005, **worker.HMC)
-            for i in range(min(m, B - r * m)):
-                out[b.pans[r * m + i]] = res.samples[i].numpy()
-    return out
-
-
+@pytest.mark.parametrize("sampler", sorted(worker.SAMPLER_RUNS))
 @pytest.mark.parametrize("W", WORLDS)
-def test_sharded_sampler_draws(runs, W):
-    got = runs["got"][W][0]
-    keys = _keys(got, "hmc/")
-    assert len(keys) == worker.N_PATIENTS
+def test_sharded_sampler_draws(runs, W, sampler):
+    """Every patient's draws over W ranks, which sample buckets of the
+    least budget padded with dummies, bitwise those of one process that
+    samples the whole cohort in one bucket."""
+    got, ref = runs["got"][W][0], runs["ref"]
+    keys = _keys(got, f"{sampler}/")
+    assert len(keys) == worker.N_PATIENTS and keys == _keys(ref, f"{sampler}/")
     H = LMCSMSpec(*worker.SPEC_ARGS).n_hyp
-    want = sampler_reference(ExperimentConfig.from_json(runs["cfgs"][W][0]), W)
-    assert sorted(f"hmc/{p}/samples" for p in want) == keys
+    kw = worker.SAMPLER_RUNS[sampler]
     for k in keys:
         s = got[k]
-        assert s.shape == (worker.HMC["num_chains"], worker.HMC["num_samples"], H)
+        assert s.shape == (kw.get("num_chains", 1), kw["num_samples"], H)
         assert np.isfinite(s).all()
-        np.testing.assert_array_equal(s, want[k.split("/")[1]], err_msg=k)
+        np.testing.assert_array_equal(s, ref[k], err_msg=k)
 
 
 def _plan_records(path, stages):
@@ -269,7 +239,11 @@ def test_ranks_plan_alike_from_different_budgets(runs, W):
     want_api = ([("train", n, B, None, None) for B in train]
                 + [("train_large", None, None, *worker.LARGE_PLAN_LOW)]
                 + [("test", n, B, None, None) for B in test for _ in range(2)])
-    want_hmc = [("hmc", n, W, None, None)] * (worker.N_PATIENTS // W)
+    sampler_recs = load_cohort(cfg_cli.data_dir, cfg_cli.pans(), cfg_cli.feature_list)
+    want_hmc = [("hmc", n, len(b), None, None) for b in pack_patients(
+        sampler_recs, max_batch=round_up(32, W), free_bytes=W * low,
+        footprint_mult=2 * worker.HMC["num_chains"])]
+    assert all(x[2] % W for x in want_hmc)  # dummies pad every sampler bucket
     for r in range(W):
         name = "metrics.jsonl" if r == 0 else f"metrics.p{r}.jsonl"
         assert _plan_records(os.path.join(cfg_api.exp_log_dir, name),

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from medgp_tpu.infer import nuts as jnuts  # noqa: E402
 from medgp_tpu.models import params as jparams  # noqa: E402
 from medgp_tpu_torch.infer import nuts as tnuts  # noqa: E402
+from medgp_tpu_torch.infer.streams import patient_streams  # noqa: E402
 from medgp_tpu_torch.models import params as tparams  # noqa: E402
 from medgp_tpu_torch.models import priors as tpriors  # noqa: E402
 from tests.test_nlml import random_theta  # noqa: E402
@@ -103,7 +104,7 @@ def test_ckpt_scheme_matches_jax_and_bruteforce():
 def test_gaussian_target_moments():
     """tests/test_nuts.py:79-96."""
     res = tnuts.nuts_sample(
-        gaussian_potential, torch.zeros(1, 3), torch.Generator().manual_seed(0),
+        gaussian_potential, torch.zeros(1, 3), patient_streams(0, [0]),
         num_warmup=400, num_samples=1500, max_depth=6, init_step_size=0.1,
     )
     s = res.samples[0].numpy()
@@ -120,7 +121,7 @@ def test_adaptive_depth_responds_to_scale():
     and the sampling depth stays within warmup_max_depth + 1."""
     res = tnuts.nuts_sample(
         lambda x: (0.5 * torch.sum((x / 10.0) ** 2, -1), x / 100.0),
-        torch.zeros(1, 4), torch.Generator().manual_seed(1),
+        torch.zeros(1, 4), patient_streams(1, [0]),
         num_warmup=200, num_samples=200, max_depth=7, init_step_size=0.5,
     )
     assert float(res.tree_depth.float().mean()) > 1.0
@@ -138,7 +139,7 @@ def test_adaptive_depth_cap_bounds_sampling_depth():
     warmup_max_depth + 1 (the JAX package's behaviour, kept: ROADMAP §C);
     the moments survive the truncation."""
     res = tnuts.nuts_sample(
-        standard_normal, torch.zeros(1, 8), torch.Generator().manual_seed(3),
+        standard_normal, torch.zeros(1, 8), patient_streams(3, [0]),
         num_warmup=300, num_samples=600, max_depth=7, init_step_size=0.5,
         adapt_depth=True, depth_quantile=0.9,
     )
@@ -154,7 +155,7 @@ def test_warmup_depth_cap_moments_survive():
     """tests/test_nuts.py:201-223: warmup capped at depth 3 from a tiny
     step size; the sampling depth is at most 3 + 1 and the moments hold."""
     res = tnuts.nuts_sample(
-        standard_normal, torch.zeros(1, 8), torch.Generator().manual_seed(11),
+        standard_normal, torch.zeros(1, 8), patient_streams(11, [0]),
         num_warmup=300, num_samples=600, max_depth=7, init_step_size=1e-3,
         warmup_max_depth=3,
     )
@@ -168,7 +169,7 @@ def test_depth_uncapped_without_adaptation():
     """tests/test_nuts.py:185-198 and :226-237: adapt_depth off and no
     warmup cap reach max_depth at most."""
     res = tnuts.nuts_sample(
-        standard_normal, torch.zeros(2, 4), torch.Generator().manual_seed(5),
+        standard_normal, torch.zeros(2, 4), patient_streams(5, [0, 1]),
         num_warmup=40, num_samples=40, max_depth=5, adapt_depth=False,
         warmup_max_depth=None,
     )
@@ -188,7 +189,7 @@ def test_clamped_hypers_stay_fixed():
     )
     res = tnuts.nuts_patient(
         spec, tdata(arrs), torch.as_tensor(theta0)[None],
-        torch.Generator().manual_seed(3), prior=prior, num_chains=2,
+        patient_streams(3, [0]), prior=prior, num_chains=2,
         num_warmup=40, num_samples=40, max_depth=4, init_step_size=0.005,
     )
     assert res.samples.shape == (1, 2, 40, spec.n_hyp)
@@ -208,7 +209,7 @@ def test_gp_posterior_means_match_jax():
     ref = jax.jit(lambda d, th, key: jnuts.nuts_patient(jspec, d, th, key, prior=jp, **kw))(
         jdata(arrs), jnp.asarray(theta_map), jax.random.key(2))
     res = tnuts.nuts_patient(spec, tdata(arrs), torch.as_tensor(theta_map)[None],
-                             torch.Generator().manual_seed(2), prior=tp, **kw)
+                             patient_streams(2, [0]), prior=tp, **kw)
     assert float(res.accept_rate.min()) > 0.3
     assert torch.isfinite(res.samples).all()
     assert int(res.tree_depth.max()) <= 4 + 1

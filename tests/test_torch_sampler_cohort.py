@@ -44,6 +44,7 @@ from medgp_tpu_torch.data import formats as tformats  # noqa: E402
 from medgp_tpu_torch.data import synthetic as tsyn  # noqa: E402
 from medgp_tpu_torch.infer import hmc as thmc  # noqa: E402
 from medgp_tpu_torch.infer import nuts as tnuts  # noqa: E402
+from medgp_tpu_torch.infer.streams import patient_streams  # noqa: E402
 from medgp_tpu_torch.infer import vi as tvi  # noqa: E402
 from medgp_tpu_torch.models import params as tparams  # noqa: E402
 from medgp_tpu_torch.parallel import runner as trunner  # noqa: E402
@@ -292,7 +293,7 @@ def test_nuts_sampling_depth_is_capped_on_the_cohort(staged):
     res = tnuts.nuts_patient(
         spec, trunner.batch_data(b, torch.device("cpu")),
         torch.as_tensor(np.stack([hyps[list(pans).index(p)] for p in b.pans]), dtype=torch.float32),
-        torch.Generator().manual_seed(0), num_chains=2, num_warmup=10, num_samples=6,
+        patient_streams(0, range(len(b))), num_chains=2, num_warmup=10, num_samples=6,
         max_depth=6, init_step_size=0.005,
     )
     assert int(res.tree_depth.max()) <= 4 + 1

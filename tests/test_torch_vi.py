@@ -25,6 +25,7 @@ from medgp_tpu.models import params as jparams  # noqa: E402
 from medgp_tpu.models import priors as jpriors  # noqa: E402
 from medgp_tpu_torch.infer import hmc as thmc  # noqa: E402
 from medgp_tpu_torch.infer import vi as tvi  # noqa: E402
+from medgp_tpu_torch.infer.streams import patient_streams  # noqa: E402
 from medgp_tpu_torch.models import gp as tgp  # noqa: E402
 from medgp_tpu_torch.models import params as tparams  # noqa: E402
 from medgp_tpu_torch.models import priors as tpriors  # noqa: E402
@@ -81,7 +82,7 @@ def test_gaussian_target_exact():
     test's, among them; tools/advi_key_spread.py). So the tolerances hold
     the mean of 16 independent fits, one per row of one batch."""
     res = tvi.advi_fit(
-        gaussian_potential, torch.zeros(16, 3), torch.Generator().manual_seed(0),
+        gaussian_potential, torch.zeros(16, 3), patient_streams(0, range(16)),
         num_steps=1500, num_mc=8, learning_rate=0.05,
     )
     assert bool(res.converged.all())
@@ -104,7 +105,7 @@ def test_clamped_hypers_stay_fixed():
     )
     res = tvi.vi_patient(
         spec, tdata(arrs), torch.as_tensor(theta0)[None],
-        torch.Generator().manual_seed(4), prior=prior, num_steps=100, num_mc=2,
+        patient_streams(4, [0]), prior=prior, num_steps=100, num_mc=2,
     )
     i = spec.n_lik
     assert float(res.mean[0, i]) == 0.0
@@ -120,7 +121,7 @@ def test_vi_batches_patients():
     data = tgp.PatientData(*(torch.tensor(np.stack(x)) for x in zip(*pats)))
     rng = np.random.default_rng(5)
     thetas = torch.as_tensor(np.stack([random_theta(rng, spec) for _ in pats]), dtype=torch.float32)
-    res = tvi.vi_patient(spec, data, thetas, torch.Generator().manual_seed(5),
+    res = tvi.vi_patient(spec, data, thetas, patient_streams(5, range(3)),
                          num_steps=60, num_mc=2, num_samples=16)
     assert res.samples.shape == (3, 16, spec.n_hyp)
     assert res.elbo_trace.shape == (3, 60)
@@ -149,7 +150,7 @@ def test_gp_variational_means_match_jax():
     ))(jax.random.split(jax.random.key(3), fits), jdata(arrs), jnp.asarray(theta_map))
     data = thmc.repeat_rows(tdata(arrs), fits)
     res = tvi.vi_patient(spec, data, torch.as_tensor(theta_map).expand(fits, -1),
-                         torch.Generator().manual_seed(3), prior=tp, **kw)
+                         patient_streams(3, range(fits)), prior=tp, **kw)
     assert bool(res.converged.all()) and bool(np.all(ref.converged))
     pm, jm = res.mean.numpy(), np.asarray(ref.mean)
     se = np.hypot(pm.std(0, ddof=1), jm.std(0, ddof=1)) / np.sqrt(fits)

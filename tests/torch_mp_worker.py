@@ -13,10 +13,10 @@ one-rank run and with the JAX package. MODE is
     and float64, the row-sharded large-patient NLML and gradient), `host_shard` and the
     per-rank metrics file;
   * "cohort": the CLI `run` on CFG[0], then `train_cohort`,
-    `test_cohort` (both modes) and `hmc_cohort` with the mesh on CFG[1],
-    each rank planning from its own memory budget (`plan_budgets`), and
-    the row-sharded value+gradient with the size of every tensor it
-    makes.
+    `test_cohort` (both modes) with the mesh on CFG[1] and `hmc_cohort`
+    with each sampler on CFG[0]'s trained patients, each rank planning
+    from its own memory budget (`plan_budgets`), and the row-sharded
+    value+gradient with the size of every tensor it makes.
 
 Every rank joins the process group first (`init_distributed`, gloo on the
 CPU), so the CLI finds it, and leaves it at the end.
@@ -39,6 +39,12 @@ N_PATIENTS, N_OBS = 8, 16
 SPEC_ARGS = (1, 2, 1)  # Q, D, R
 LARGE_N, LARGE_BLOCKS = 256, 8
 HMC = dict(num_chains=2, num_warmup=4, num_samples=4, num_leapfrog=4)
+# hmc_cohort's budgets by sampler (VI: 4 ADVI steps, 4 draws)
+SAMPLER_RUNS = {
+    "hmc": HMC,
+    "nuts": dict(num_chains=2, num_warmup=4, num_samples=4, max_depth=3),
+    "vi": dict(num_warmup=4, num_samples=4),
+}
 
 
 def build_cohort():
@@ -250,10 +256,11 @@ def run_mesh(inp, out):
 def cohort_results(cfg_cli, cfg_api, mesh_of):
     """The CLI `run` on cfg_cli, then, each within its rank's budget
     (`plan_budgets`), `train_cohort` (not written; also the large patient
-    alone), `test_cohort` (both modes) on cfg_api and `hmc_cohort` on
-    cfg_cli's trained patients over a mesh, and the large value+gradient:
-    a dict of arrays. `mesh_of()` gives the mesh, or None: then every call
-    runs on one device, the one-rank run the tests compare with."""
+    alone), `test_cohort` (both modes) on cfg_api and `hmc_cohort` with
+    each sampler of SAMPLER_RUNS on cfg_cli's trained patients, and the
+    large value+gradient: a dict of arrays. `mesh_of()` gives the mesh, or
+    None: then every call runs on one device (the samplers on whole
+    buckets), the one-rank run the tests compare with."""
     from medgp_tpu_torch.cli.main import main as cli
     from medgp_tpu_torch.config.experiment import ExperimentConfig
     from medgp_tpu_torch.data.cohort import load_cohort
@@ -284,13 +291,14 @@ def cohort_results(cfg_cli, cfg_api, mesh_of):
         for mode, d in r.items():
             for k in ("pred", "error", "ci", "var"):
                 res[f"test/{pan}/{mode}/{k}"] = d[k]
-    if mesh is not None:
-        cfg_run = ExperimentConfig.from_json(cfg_cli)
-        run_recs = load_cohort(cfg_run.data_dir, cfg_run.pans(), cfg_run.feature_list)
+    cfg_run = ExperimentConfig.from_json(cfg_cli)
+    run_recs = load_cohort(cfg_run.data_dir, cfg_run.pans(), cfg_run.feature_list)
+    for sampler, kw in SAMPLER_RUNS.items():
         with cpu_budget(buckets):
-            hm = hmc_cohort(cfg_run, run_recs, write=False, device="cpu", use_mesh=True, **HMC)
+            hm = hmc_cohort(cfg_run, run_recs, write=False, device="cpu", use_mesh=use_mesh,
+                            sampler=sampler, **kw)
         for pan, r in hm.items():
-            res[f"hmc/{pan}/samples"] = r["samples"]
+            res[f"{sampler}/{pan}/samples"] = r["samples"]
     v, g, largest = large_value_and_grad(mesh)
     res.update(large_value=v, large_grad=g, large_largest=largest)
     return res
