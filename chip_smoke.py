@@ -45,7 +45,10 @@ Phases (any failure raises and the script exits non-zero):
      and on tools/refbudget_run.sh's PT/INR cohort at its reduced budgets,
      trained from the JAX package's restart draws, where each test mode's
      MAE must lie within three combined standard errors of the JAX
-     package's (JAX_PTINR_MAE);
+     package's (JAX_PTINR_MAE); then on the same cohort from the port's
+     own restart draws, the path users run, where each mode's MAE must lie
+     within a 3-sd prediction interval of the JAX package's draw sets
+     (JAX_DRAWS_PTINR_MAE);
   7. the posterior samplers on the trained cohort of phase 5, every
      (patient, chain) drawing from its own counter-based stream
      (medgp_tpu_torch/infer/streams.py): the HMC
@@ -256,6 +259,22 @@ JAX_PTINR_MAE = {
                       "SCALE.md §6 (TPU v5e)": (0.5382, 0.0141)},
 }
 MAE_SIGMAS = 3.0  # |MAE_port - MAE_jax| <= 3 combined standard errors
+# The same cohort and budgets from the port's own restart draws (seed 718,
+# no restart_draws), the path users run. Its MAE must lie in a 3-sd
+# prediction interval of one new set of 16 draws from the population of
+# the JAX package's draw sets: |MAE - mean_J| <= OWN_DRAW_SIGMAS * sd_J *
+# sqrt(1 + 1/JAX_DRAW_SETS). mean_J and sd_J (ddof 1) are over the J arms
+# of `python3 tools/ptinr_arms.py --paired`: the JAX package's draws of
+# jax.random.key(s), s = 718, 1, ..., 9 (tools/ptinr_jax_inits_seeds.json),
+# each trained through the port with random_seed = s; one chip run on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, 20 arms in one call (the
+# paired table in PERF.md §6).
+JAX_DRAW_SETS = 10
+JAX_DRAWS_PTINR_MAE = {  # mode: (mean_J, sd_J)
+    "mean_wo_update": (0.5766032268597993, 0.021460489618261518),
+    "mean_w_update": (0.5254555727919448, 0.011568493291595351),
+}
+OWN_DRAW_SIGMAS = 3.0
 
 # The samplers' phases: the CLI `hmc` with each sampler, and `run --sampler
 # hmc`, at budgets cut to keep the three `hmc` phases near 3 minutes on the
@@ -1315,6 +1334,33 @@ def run_accuracy(dev):
             check(abs(m - mj) <= lim, f"PT/INR {mode}: MAE {m} is {abs(m - mj)} "
                   f"from the JAX package's {mj} ({arm}), above {lim}")
     print(f"run (PT/INR): stage seconds {json.dumps(stages)}; summary "
+          f"{json.dumps(summary)}")
+    return seconds, counts, stages, got
+
+
+def run_own_draws(dev):
+    """`run` on the PT/INR cohort at the reduced budgets from the port's own
+    restart draws (seed 718): both modes' outputs complete and finite, and
+    each mode's MAE within OWN_DRAW_SIGMAS sd_J sqrt(1 + 1/JAX_DRAW_SETS) of
+    mean_J (JAX_DRAWS_PTINR_MAE)."""
+    cfg_path, recs = stage_ptinr("ptinr_own", PTINR_OPT)
+    cfg = ExperimentConfig.from_json(cfg_path)
+    seconds, counts, summary = run_fused("run (PT/INR, own draws)", cfg_path, dev)
+    check_mode_kernels(cfg, range(-1, cfg.cv_fold_num))
+    for mode in TEST_MODES:
+        check_test_outputs(cfg, recs, mode)
+    stages = run_stage_seconds(cfg)
+    got = {m: mae_mean_se(cfg.exp_test_dir, m, cfg.feature_list) for m in TEST_MODES}
+    for mode in TEST_MODES:
+        m, se, n = got[mode]
+        mj, sdj = JAX_DRAWS_PTINR_MAE[mode]
+        lim = OWN_DRAW_SIGMAS * sdj * float(np.sqrt(1 + 1 / JAX_DRAW_SETS))
+        print(f"PT/INR {mode}, own draws: port MAE {m:.4f} +- {se:.4f} (N={n}); "
+              f"JAX package's draw sets {mj:.4f}, sd {sdj:.4f} over "
+              f"{JAX_DRAW_SETS}; |d| {abs(m - mj):.4f} against {lim:.4f}")
+        check(abs(m - mj) <= lim, f"PT/INR {mode} from the port's own draws: MAE "
+              f"{m} is {abs(m - mj)} from the JAX draw sets' {mj}, above {lim}")
+    print(f"run (PT/INR, own draws): stage seconds {json.dumps(stages)}; summary "
           f"{json.dumps(summary)}")
     return seconds, counts, stages, got
 
@@ -2881,6 +2927,8 @@ def main():
     phase_done("run (full width)")
     acc_s, acc_c, acc_stages, acc_mae = run_accuracy(dev)
     phase_done("run (PT/INR accuracy)")
+    own_s, own_c, own_stages, own_mae = run_own_draws(dev)
+    phase_done("run (PT/INR own draws)")
     rs_s, rs_c, rs_stages = run_with_sampler(dev)
     phase_done("run --sampler hmc")
     gauss = gaussian_moments(dev)
@@ -2912,6 +2960,7 @@ def main():
     by_path = {
         name: {"test_wo_update": wo[name], "train": tr[name], "test_w_update": wu[name],
                "run": run_c[name], "run_ptinr": acc_c[name],
+               "run_ptinr_own": own_c[name],
                **{f"hmc_{k}": v[1][name] for k, v in samplers.items()},
                "run_sampler": rs_c[name], "large_vs_dense": lg_c[name],
                "train_large": lt_c[name],
@@ -2960,7 +3009,8 @@ def main():
           f"objective+gradient evals/s at B=128 n=512: {rates['kernels']:.1f}")
     print(f"run stages (s): full width {json.dumps(run_stages)} in {run_s:.2f}; "
           f"PT/INR {json.dumps(acc_stages)} in {acc_s:.2f}; PT/INR MAE (mean, SE, N) "
-          f"{json.dumps(acc_mae)}")
+          f"{json.dumps(acc_mae)}; PT/INR own draws {json.dumps(own_stages)} in "
+          f"{own_s:.2f}, MAE {json.dumps(own_mae)}")
     print(json.dumps({"samplers": {
         "potential_rows": sampler_rows,
         "hmc_phases": {k: dict(seconds=v[0], **v[2]) for k, v in samplers.items()},
