@@ -193,7 +193,7 @@ from medgp_tpu_torch.parallel.runner import (
     MAX_BATCH, TEST_MODES, _test_prior, hmc_cohort, test_cohort, train_cohort,
 )
 from medgp_tpu_torch.runtime import bindings
-from medgp_tpu_torch.utils import hbm
+from medgp_tpu_torch.utils import hbm, metrics
 from medgp_tpu_torch.visualization import fastkernel, vizkernel
 from medgp_tpu_torch.visualization.printkernel import print_kernel_info
 
@@ -376,13 +376,14 @@ GRAM_BWD_OPS = 20
 # component, are printed as a second term beside its bound (text only).
 PEAK_SFU = 132 * 16 * 1.98e9
 
-# Launch counters of the five kernels' wrappers.
+# The five kernels by their wrappers' names, and the prefix of their
+# counters in the program's table (utils/metrics.py: `<k>.launches`).
 KERNELS = {
-    "gram_lmcsm": cuda_gram.gram_lmcsm_fused,
-    "gram_lmcsm_bwd": cuda_gram.gram_lmcsm_bwd,
-    "chol_solve": cuda_chol.chol_solve,
-    "qmat": cuda_chol.qmat,
-    "tri_inv": cuda_chol.tri_inv,
+    "gram_lmcsm": "k1",
+    "gram_lmcsm_bwd": "k2",
+    "chol_solve": "k3",
+    "qmat": "k4",
+    "tri_inv": "k5",
 }
 
 
@@ -431,13 +432,23 @@ def twins():
     check(read_launches() == before, "a kernel launched inside twins()")
 
 
+_launches_at_reset = {}
+
+
+def _launch_counts():
+    table = metrics.snapshot()
+    return {name: int(table[k + ".launches"]) for name, k in KERNELS.items()}
+
+
 def reset_launches():
-    for fn in KERNELS.values():
-        fn.launches = 0
+    """Count launches from here on (`read_launches`)."""
+    _launches_at_reset.update(_launch_counts())
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Each kernel's launches since the last `reset_launches` (since the
+    process started, before the first)."""
+    return {name: c - _launches_at_reset.get(name, 0) for name, c in _launch_counts().items()}
 
 
 def cuda_ms(fn, reps):

@@ -25,6 +25,7 @@ from medgp_tpu_torch.infer.scg import scg_minimize
 from medgp_tpu_torch.infer.varem import VarEMState, varem_train
 from medgp_tpu_torch.models.gp import PatientData, nlml_fn, objective_and_grad
 from medgp_tpu_torch.models.params import KernelSpec, LMCSMSpec
+from medgp_tpu_torch.utils import metrics
 from medgp_tpu_torch.utils.hbm import screen_chunk_systems
 
 
@@ -51,30 +52,32 @@ def screen_inits(
 ) -> ScreenResult:
     """Value-only NLML of every (patient, restart) pair, thetas (S, H),
     in chunks sized by utils/hbm.py's screen budget; each patient keeps
-    its first argmin."""
-    P, n = data.t.shape
-    S = thetas.shape[0]
-    dev = data.t.device
-    chunk = screen_chunk_systems(n, dev)
-    values = torch.empty(P * S, dtype=thetas.dtype, device=dev)
-    oks = torch.empty(P * S, dtype=torch.bool, device=dev)
-    with torch.no_grad():
-        for start in range(0, P * S, chunk):
-            j = torch.arange(start, min(start + chunk, P * S), device=dev)
-            v, res = nlml_fn(spec, data.rows(j // S), None, max_retries)(
-                thetas[j % S]
-            )
-            values[j], oks[j] = v, res.ok
-    values = values.reshape(P, S)
-    oks = oks.reshape(P, S)
-    values = torch.where(oks, values, torch.full_like(values, float("inf")))
-    best = torch.argmin(values, dim=1)
-    return ScreenResult(
-        best_theta=thetas[best],
-        best_loss=values.gather(1, best[:, None]).squeeze(1),
-        n_ok=oks.sum(dim=1).to(torch.int32),
-        ok=oks.any(dim=1),
-    )
+    its first argmin. The call is the span `medgp.train.screen`
+    (utils/metrics.py)."""
+    with metrics.span("medgp.train.screen"):
+        P, n = data.t.shape
+        S = thetas.shape[0]
+        dev = data.t.device
+        chunk = screen_chunk_systems(n, dev)
+        values = torch.empty(P * S, dtype=thetas.dtype, device=dev)
+        oks = torch.empty(P * S, dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            for start in range(0, P * S, chunk):
+                j = torch.arange(start, min(start + chunk, P * S), device=dev)
+                v, res = nlml_fn(spec, data.rows(j // S), None, max_retries)(
+                    thetas[j % S]
+                )
+                values[j], oks[j] = v, res.ok
+        values = values.reshape(P, S)
+        oks = oks.reshape(P, S)
+        values = torch.where(oks, values, torch.full_like(values, float("inf")))
+        best = torch.argmin(values, dim=1)
+        return ScreenResult(
+            best_theta=thetas[best],
+            best_loss=values.gather(1, best[:, None]).squeeze(1),
+            n_ok=oks.sum(dim=1).to(torch.int32),
+            ok=oks.any(dim=1),
+        )
 
 
 class TrainResult(NamedTuple):

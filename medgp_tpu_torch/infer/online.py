@@ -40,6 +40,7 @@ from medgp_tpu_torch.models.params import KernelSpec
 from medgp_tpu_torch.models.priors import PriorSpec
 from medgp_tpu_torch.ops import cuda_chol
 from medgp_tpu_torch.ops.nlml import jittered_chol_solve, mask_gram
+from medgp_tpu_torch.utils import metrics
 from medgp_tpu_torch.utils.hbm import test_chunk_pairs
 
 # mean_w_update (main_one_test.cpp:286-309): the history window of an
@@ -209,7 +210,9 @@ def _impute_with_updates(
     momentum to zero), then predicts the observations at u_t from the same
     window under its current theta. Patients whose gate is closed (or whose
     timestamps ran out) are left out of that step's batches, which gives
-    the JAX program's selects."""
+    the JAX program's selects. Each step's update (its gate included) is
+    the span `medgp.online.update`, its prediction `medgp.online.predict`
+    (utils/metrics.py)."""
     Bt = u_times.shape[0]
     dtype = mode_theta.dtype
     dev = data.t.device
@@ -234,34 +237,36 @@ def _impute_with_updates(
         m_past = d.mask * in_window.to(dtype)
 
         if idx > UPDATE_MIN_INDEX:
-            gate = (u_t - last_t[live]) > UPDATE_MIN_GAP
-            upd = live[gate]
-            if upd.numel():
-                past = PatientData(
-                    t=data.t[upd], y=data.y[upd], meta=data.meta[upd],
-                    mask=m_past[gate],
-                )
-                f = objective_and_grad(spec, past, prior, max_retries)
-                _value, grad, ok = f(theta[upd])
-                d_new = momentum * delta[upd] + learn_rate * grad
-                th_new = theta[upd] - d_new
-                okc = ok[:, None]
-                theta[upd] = torch.where(okc, th_new, mode_theta.expand_as(th_new))
-                delta[upd] = torch.where(okc, d_new, torch.zeros_like(d_new))
-                last_t[upd] = u_t[gate]
+            with metrics.span("medgp.online.update"):
+                gate = (u_t - last_t[live]) > UPDATE_MIN_GAP
+                upd = live[gate]
+                if upd.numel():
+                    past = PatientData(
+                        t=data.t[upd], y=data.y[upd], meta=data.meta[upd],
+                        mask=m_past[gate],
+                    )
+                    f = objective_and_grad(spec, past, prior, max_retries)
+                    _value, grad, ok = f(theta[upd])
+                    d_new = momentum * delta[upd] + learn_rate * grad
+                    th_new = theta[upd] - d_new
+                    okc = ok[:, None]
+                    theta[upd] = torch.where(okc, th_new, mode_theta.expand_as(th_new))
+                    delta[upd] = torch.where(okc, d_new, torch.zeros_like(d_new))
+                    last_t[upd] = u_t[gate]
 
-        th = theta[live]
-        K = noiseless_gram(spec, th, d)
-        nv = noise_variance(spec, th, d.meta)
-        m_curr = d.mask * (d.t == u_t[:, None]).to(dtype)
-        p_, e_, c_, v_ = _predict_from_history(
-            K, nv, d.y, d.meta, m_past, m_curr, mode_noise_std, max_retries,
-        )
-        pred.index_add_(0, live, p_ * m_curr)
-        err.index_add_(0, live, e_ * m_curr)
-        var.index_add_(0, live, v_ * m_curr)
-        ci.index_add_(0, live, c_ * m_curr.to(torch.int32))
-        wsum.index_add_(0, live, m_curr)
+        with metrics.span("medgp.online.predict"):
+            th = theta[live]
+            K = noiseless_gram(spec, th, d)
+            nv = noise_variance(spec, th, d.meta)
+            m_curr = d.mask * (d.t == u_t[:, None]).to(dtype)
+            p_, e_, c_, v_ = _predict_from_history(
+                K, nv, d.y, d.meta, m_past, m_curr, mode_noise_std, max_retries,
+            )
+            pred.index_add_(0, live, p_ * m_curr)
+            err.index_add_(0, live, e_ * m_curr)
+            var.index_add_(0, live, v_ * m_curr)
+            ci.index_add_(0, live, c_ * m_curr.to(torch.int32))
+            wsum.index_add_(0, live, m_curr)
     return OnlineResult(
         pred=pred, error=err, ci=ci, var=var, valid=wsum > 0,
         theta_final=theta,

@@ -25,6 +25,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from medgp_tpu_torch.utils import metrics
+
 # Line-search constants (c_optimizer_scg.cpp:37-42).
 _INT = 0.1     # don't reevaluate within this fraction of the current bracket
 _EXT = 3.0     # maximum extrapolation factor
@@ -79,7 +81,14 @@ def scg_minimize(f: Objective, x0: torch.Tensor, max_evals: int) -> SCGResult:
 
     `f(x (k, H), idx (k,)) -> (value (k,), grad (k, H), ok (k,))` evaluates
     the objectives of elements `idx` at `x`; ok = False or a non-finite
-    value marks a failed evaluation."""
+    value marks a failed evaluation. The call is the span `medgp.scg`
+    (utils/metrics.py): its self time is the line search's own work,
+    outside the objective's calls."""
+    with metrics.span("medgp.scg"):
+        return _minimize(f, x0, max_evals)
+
+
+def _minimize(f: Objective, x0: torch.Tensor, max_evals: int) -> SCGResult:
     P = x0.shape[0]
     dev, dtype = x0.device, x0.dtype
     inf = torch.tensor(float("inf"), dtype=dtype, device=dev)

@@ -32,6 +32,7 @@ from medgp_tpu_torch.infer.scg import scg_minimize
 from medgp_tpu_torch.models.gp import PatientData, objective_and_grad
 from medgp_tpu_torch.models.params import LMCSMSpec, cov_slices
 from medgp_tpu_torch.models.priors import PRIOR_CLAMP, PriorSpec, hier_gamma_prior
+from medgp_tpu_torch.utils import metrics
 
 EARLY_STOP_TOL = 0.005  # |relative loss change| that stops (varEM.cpp:89-95)
 PSI_CLAMP_EPS = 0.0     # psi at or below it clamps its A element
@@ -133,56 +134,58 @@ def varem_train(
         run = torch.nonzero(~done).squeeze(-1)
         if run.numel() == 0:
             break
-        pr = prior.rows(run)
-        if objective_factory is not None:
-            f = objective_factory(pr)
-        else:
-            f = objective_and_grad(spec, data.rows(run), pr, max_retries)
-        res = scg_minimize(
-            f, theta[run], warmup_evals if it < n_warm else sub_opt_iter
-        )
+        with metrics.span("medgp.varem.round"):
+            pr = prior.rows(run)
+            if objective_factory is not None:
+                f = objective_factory(pr)
+            else:
+                f = objective_and_grad(spec, data.rows(run), pr, max_retries)
+            res = scg_minimize(
+                f, theta[run], warmup_evals if it < n_warm else sub_opt_iter
+            )
 
-        # early stop, checked before the E-step
-        change = (res.fx - prev_loss[run]) / prev_loss[run]
-        stop = (torch.abs(change) < EARLY_STOP_TOL) & (it > 0)
+            # early stop, checked before the E-step
+            change = (res.fx - prev_loss[run]) / prev_loss[run]
+            stop = (torch.abs(change) < EARLY_STOP_TOL) & (it > 0)
 
-        k = run.numel()
-        a = res.x[:, a_lo:a_hi].reshape(k, *shape)
-        new_state, clamp = e_step(spec, state.rows(run), a, fixed)
-        already = (
-            pr.active[:, a_lo:a_hi] & (pr.ptype[:, a_lo:a_hi] == PRIOR_CLAMP)
-        )
-        clamp_all = clamp.reshape(k, -1) | already
-        theta_new = res.x.clone()
-        theta_new[:, a_lo:a_hi] = torch.where(
-            clamp_all, torch.zeros_like(a.reshape(k, -1)), res.x[:, a_lo:a_hi]
-        )
-        ptype_new = pr.ptype.clone()
-        ptype_new[:, a_lo:a_hi] = torch.where(
-            clamp_all, torch.full_like(ptype_new[:, a_lo:a_hi], PRIOR_CLAMP),
-            pr.ptype[:, a_lo:a_hi],
-        )
-        scale_new = pr.scale.clone()
-        scale_new[:, a_lo:a_hi] = new_state.psi.reshape(k, -1).to(dtype)
+            with metrics.span("medgp.varem.estep"):
+                k = run.numel()
+                a = res.x[:, a_lo:a_hi].reshape(k, *shape)
+                new_state, clamp = e_step(spec, state.rows(run), a, fixed)
+                already = (
+                    pr.active[:, a_lo:a_hi] & (pr.ptype[:, a_lo:a_hi] == PRIOR_CLAMP)
+                )
+                clamp_all = clamp.reshape(k, -1) | already
+                theta_new = res.x.clone()
+                theta_new[:, a_lo:a_hi] = torch.where(
+                    clamp_all, torch.zeros_like(a.reshape(k, -1)), res.x[:, a_lo:a_hi]
+                )
+                ptype_new = pr.ptype.clone()
+                ptype_new[:, a_lo:a_hi] = torch.where(
+                    clamp_all, torch.full_like(ptype_new[:, a_lo:a_hi], PRIOR_CLAMP),
+                    pr.ptype[:, a_lo:a_hi],
+                )
+                scale_new = pr.scale.clone()
+                scale_new[:, a_lo:a_hi] = new_state.psi.reshape(k, -1).to(dtype)
 
-        # stopping elements keep this round's M-step and skip its E-step
-        keep = stop[:, None]
-        theta[run] = torch.where(keep, res.x, theta_new)
-        state = VarEMState(*(
-            x.index_put((run,), torch.where(
-                stop.reshape(-1, *[1] * (x.dim() - 1)), x[run], nx))
-            for x, nx in zip(state, new_state)
-        ))
-        prior = prior._replace(
-            ptype=prior.ptype.index_put((run,), torch.where(keep, pr.ptype, ptype_new)),
-            scale=prior.scale.index_put((run,), torch.where(keep, pr.scale, scale_new)),
-        )
-        loss[run] = res.fx
-        prev_loss[run] = res.fx
-        done[run] = stop
-        n_outer[run] += 1
-        n_evals[run] += res.n_evals
-        ok[run] = ok[run] & res.ok
+                # stopping elements keep this round's M-step and skip its E-step
+                keep = stop[:, None]
+                theta[run] = torch.where(keep, res.x, theta_new)
+                state = VarEMState(*(
+                    x.index_put((run,), torch.where(
+                        stop.reshape(-1, *[1] * (x.dim() - 1)), x[run], nx))
+                    for x, nx in zip(state, new_state)
+                ))
+                prior = prior._replace(
+                    ptype=prior.ptype.index_put((run,), torch.where(keep, pr.ptype, ptype_new)),
+                    scale=prior.scale.index_put((run,), torch.where(keep, pr.scale, scale_new)),
+                )
+            loss[run] = res.fx
+            prev_loss[run] = res.fx
+            done[run] = stop
+            n_outer[run] += 1
+            n_evals[run] += res.n_evals
+            ok[run] = ok[run] & res.ok
 
     return VarEMResult(
         theta=theta, loss=loss, state=state, prior=prior, n_outer=n_outer,

@@ -19,6 +19,7 @@ from medgp_tpu_torch.ops.gram import (
     cross_gram_lmcsm, diag_lmcsm, gram_se, gram_sm, sm_base, squared_dist,
 )
 from medgp_tpu_torch.ops.nlml import Posterior, mask_gram, masked_nlml, predict
+from medgp_tpu_torch.utils import metrics
 
 
 class PatientData(NamedTuple):
@@ -142,25 +143,32 @@ def objective_and_grad(
     elements replaced by 0, so an inf never reaches autograd. The gradient
     is masked by the prior's `grad_mask` (clamped hypers do not move) and
     zeroed where the evaluation failed, is not finite, or the patient has
-    <= 2 observations (gp.py:141-162 in the JAX package)."""
+    <= 2 observations (gp.py:141-162 in the JAX package).
+
+    Each call is the span `medgp.objective`, with `.forward` (K1, K3 and
+    the jitter loop) and `.backward` (the autograd call: K4, K2) inside it
+    (utils/metrics.py)."""
 
     def f(theta, idx=None):
-        d, pr = data, prior
-        if idx is not None:
-            d = data.rows(idx)
-            if pr is not None and pr.active.dim() == 2:
-                pr = pr.rows(idx)
-        with torch.enable_grad():
-            th = theta.detach().requires_grad_()
-            value, res = nlml_fn(spec, d, pr, max_retries)(th)
-            ok = res.ok & (d.n_obs > 2)
-            total = torch.where(ok, value, torch.zeros_like(value)).sum()
-            (g,) = torch.autograd.grad(total, th)
-        if pr is not None:
-            g = g * pr.grad_mask()
-        ok = ok & torch.all(torch.isfinite(g), dim=-1)
-        g = torch.where(ok[:, None], g, torch.zeros_like(g))
-        return value.detach(), g, ok
+        with metrics.span("medgp.objective"):
+            d, pr = data, prior
+            if idx is not None:
+                d = data.rows(idx)
+                if pr is not None and pr.active.dim() == 2:
+                    pr = pr.rows(idx)
+            with torch.enable_grad():
+                th = theta.detach().requires_grad_()
+                with metrics.span("medgp.objective.forward"):
+                    value, res = nlml_fn(spec, d, pr, max_retries)(th)
+                    ok = res.ok & (d.n_obs > 2)
+                    total = torch.where(ok, value, torch.zeros_like(value)).sum()
+                with metrics.span("medgp.objective.backward"):
+                    (g,) = torch.autograd.grad(total, th)
+            if pr is not None:
+                g = g * pr.grad_mask()
+            ok = ok & torch.all(torch.isfinite(g), dim=-1)
+            g = torch.where(ok[:, None], g, torch.zeros_like(g))
+            return value.detach(), g, ok
 
     return f
 

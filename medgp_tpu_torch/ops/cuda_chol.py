@@ -20,7 +20,9 @@ live in csrc/chol.cu, and neither result depends on the batch.
 
 Each wrapper takes the device of its inputs as the choice: CPU tensors go
 to the plain twin, CUDA tensors to the kernel (or an error), with no
-fallback from one to the other.
+fallback from one to the other. Every call counts its batch as the
+counter `<k>.systems`, and every launch on the card `<k>.launches`, for
+k = k3 (K3), k4 (K4), k5 (K5); utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from medgp_tpu_torch.ops import cuda_build
+from medgp_tpu_torch.utils import metrics
 
 BLOCK = 32
 # K3's launch plan: enough CTAs that the batch fills the card's 132 SMs
@@ -102,6 +105,7 @@ def chol_solve(K, noise, y):
     inverses of L's diagonal blocks. Only K's lower triangle is read."""
     Bt, n, _ = K.shape
     _check_n(n, "chol_solve")
+    metrics.count("k3.systems", Bt)
     if K.device.type == "cpu":
         return chol_solve_plain(K, noise, y)
     return chol_solve_cluster(K, noise, y, chol_cluster_size(Bt, n))
@@ -138,11 +142,8 @@ def chol_solve_cluster(K, noise, y, cluster: int):
             f"{torch.cuda.get_device_name(dev)} (cudaOccupancyMaxActiveClusters = 0)"
         )
     cuda_build.check_launch(code, "chol_solve")
-    chol_solve.launches += 1
+    metrics.count("k3.launches")
     return L, alpha, linvd
-
-
-chol_solve.launches = 0
 
 
 def tri_inv(L, linvd):
@@ -150,6 +151,7 @@ def tri_inv(L, linvd):
     block inverses -> L^{-1} (B, n, n), lower-triangular."""
     Bt, n, _ = L.shape
     _check_n(n, "tri_inv")
+    metrics.count("k5.systems", Bt)
     if L.device.type == "cpu":
         return tri_inv_plain(L, linvd)
     if L.device.type != "cuda":
@@ -167,11 +169,8 @@ def tri_inv(L, linvd):
             cuda_build.stream_of(L),
         )
     cuda_build.check_launch(code, "tri_inv")
-    tri_inv.launches += 1
+    metrics.count("k5.launches")
     return X
-
-
-tri_inv.launches = 0
 
 
 def qmat_plain(L, linvd, alpha, coef):
@@ -190,6 +189,7 @@ def qmat(L, linvd, alpha, coef):
     Bt, n, _ = L.shape
     _check_n(n, "qmat")
     coef = coef.reshape(Bt)
+    metrics.count("k4.systems", Bt)
     if L.device.type == "cpu":
         return qmat_plain(L, linvd, alpha, coef)
     if L.device.type != "cuda":
@@ -211,8 +211,5 @@ def qmat(L, linvd, alpha, coef):
             X.data_ptr(), out.data_ptr(), Bt, n, cuda_build.stream_of(L),
         )
     cuda_build.check_launch(code, "qmat")
-    qmat.launches += 1
+    metrics.count("k4.launches")
     return out
-
-
-qmat.launches = 0

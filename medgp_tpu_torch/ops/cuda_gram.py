@@ -8,7 +8,9 @@ they are laid out is stated there.
 
 Each wrapper takes the device of its inputs as the choice: CPU tensors go
 to the plain twin, CUDA tensors to the kernel (or an error). There is no
-fallback from the kernel to the twin.
+fallback from the kernel to the twin. Every call counts its batch as the
+counter `<k>.systems`, and every launch on the card `<k>.launches`, for
+k = k1 (K1), k2 (K2); utils/metrics.py.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from medgp_tpu_torch.models.params import REF_PI
 from medgp_tpu_torch.ops import cuda_build
 from medgp_tpu_torch.ops.gram import gram_lmcsm
 from medgp_tpu_torch.ops.nlml import mask_gram
+from medgp_tpu_torch.utils import metrics
 
 # Shared memory a block may take on the H100 (227 KB), less a reserve for
 # the kernels' static arrays (K1 has none, K2 under 4 KB); the C entries
@@ -82,6 +85,7 @@ def gram_lmcsm_fused(t, meta, B, mu, v, mask=None) -> torch.Tensor:
     """(Bt, n) t float32 / meta int32, (Bt, Q, D, D) B, (Bt, Q) mu and v
     [, (Bt, n) mask] -> K (Bt, n, n) float32; with `mask` the mask_gram
     epilogue (zero padded rows/cols, unit diagonal) is fused in."""
+    metrics.count("k1.systems", t.shape[0])
     if t.device.type == "cpu":
         return gram_lmcsm_plain(t, meta, B, mu, v, mask)
     if t.device.type != "cuda":
@@ -115,11 +119,8 @@ def gram_lmcsm_fused(t, meta, B, mu, v, mask=None) -> torch.Tensor:
             K.data_ptr(), Bt, n, Q, D, tile, per, ctas, cuda_build.stream_of(t),
         )
     cuda_build.check_launch(code, "gram_lmcsm_fused")
-    gram_lmcsm_fused.launches += 1
+    metrics.count("k1.launches")
     return K
-
-
-gram_lmcsm_fused.launches = 0
 
 
 def gram_lmcsm_bwd_plain(dK, t, meta, B, mu, v, mask=None):
@@ -156,6 +157,7 @@ def gram_lmcsm_bwd(dK, t, meta, B, mu, v, mask=None):
     """The gram's VJP with respect to (B, mu, v): (Bt, n, n) dK, and the
     forward's t, meta, B, mu, v [, mask] -> dB (Bt, Q, D, D), dmu and dv
     (Bt, Q), all float32. dK need not be symmetric."""
+    metrics.count("k2.systems", t.shape[0])
     if dK.device.type == "cpu":
         return gram_lmcsm_bwd_plain(dK, t, meta, B, mu, v, mask)
     if dK.device.type != "cuda":
@@ -196,11 +198,8 @@ def gram_lmcsm_bwd(dK, t, meta, B, mu, v, mask=None):
             cuda_build.stream_of(dK),
         )
     cuda_build.check_launch(code, "gram_lmcsm_bwd")
-    gram_lmcsm_bwd.launches += 1
+    metrics.count("k2.launches")
     return dB, dmu, dv
-
-
-gram_lmcsm_bwd.launches = 0
 
 
 class GramLMCSM(torch.autograd.Function):

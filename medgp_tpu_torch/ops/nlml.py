@@ -23,6 +23,7 @@ import torch
 
 from medgp_tpu_torch.models.params import REF_PI
 from medgp_tpu_torch.ops import cuda_chol
+from medgp_tpu_torch.utils import metrics
 
 
 def chol_ok(L: torch.Tensor) -> torch.Tensor:
@@ -56,6 +57,8 @@ def jittered_chol_solve(
     which is what JAX's lock-step `while_loop` under vmap gives. An element
     that fails at every multiplier gets L = I, alpha = 0 (and identity
     diagonal-block inverses, so its L^{-1} is I as on the JAX XLA path).
+    The systems factored again are counted as `k3.retry_systems`, each
+    retry timed as the span `medgp.k3.retry` (utils/metrics.py).
 
     Returns (L, alpha, linvd, ok, mult)."""
     L, alpha, linvd = cuda_chol.chol_solve(Km, noise_eff, y_eff)
@@ -67,10 +70,12 @@ def jittered_chol_solve(
         if bad.numel() == 0:
             break
         m += 1
-        L2, a2, d2 = cuda_chol.chol_solve(Km[bad], float(m) * noise_eff[bad], y_eff[bad])
-        L[bad], alpha[bad], linvd[bad] = L2, a2, d2
-        ok[bad] = chol_ok(L2)
-        mult[bad] = m
+        metrics.count("k3.retry_systems", bad.numel())
+        with metrics.span("medgp.k3.retry"):
+            L2, a2, d2 = cuda_chol.chol_solve(Km[bad], float(m) * noise_eff[bad], y_eff[bad])
+            L[bad], alpha[bad], linvd[bad] = L2, a2, d2
+            ok[bad] = chol_ok(L2)
+            mult[bad] = m
     bad = torch.nonzero(~ok).squeeze(-1)
     if bad.numel():
         n, nb = L.shape[-1], linvd.shape[-1]

@@ -54,7 +54,7 @@ from medgp_tpu_torch.parallel.mesh import (
 )
 from medgp_tpu_torch.utils.checkpoints import CohortCheckpointer
 from medgp_tpu_torch.utils.hbm import train_batch_cap
-from medgp_tpu_torch.utils.metrics import MetricsWriter
+from medgp_tpu_torch.utils.metrics import MetricsWriter, since, snapshot, span
 
 log = logging.getLogger("medgp_tpu_torch")
 
@@ -130,27 +130,31 @@ def _train_bucket(cfg, spec, b: PaddedBatch, bidx, inits, device, metrics, mesh)
     """Train one bucket (over the mesh, padded to a multiple of the world
     and sharded); returns host (theta, init_theta, flags, losses, n_obs,
     var_flat or None) of its patients and writes its `train` metrics
-    record."""
+    record, which carries what the table of spans and counters
+    (utils/metrics.py) gained in the bucket."""
     kw = dict(prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
               top_iters=cfg.top_iteration_num, sub_opt_iter=cfg.iteration_num_per_update)
     B = len(b)
-    t0 = time.perf_counter()
-    if mesh is None:
-        res = train_one_patient(spec, batch_data(b, device), inits, **kw)
-    else:
-        step = sharded_train_step(spec, mesh, inits, **kw)
-        res = take_rows(step(pad_batch_to(batch_data(b, device), round_up(B, mesh.world))), B)
-    theta = res.theta.double().cpu().numpy()  # waits for the device
-    dt = time.perf_counter() - t0
-    init_theta = res.init_theta.double().cpu().numpy()
-    flags = res.flag.cpu().numpy()
-    nobs = res.n_obs.cpu().numpy()
-    losses = res.loss.double().cpu().numpy()
-    evals = int(res.n_evals.sum())
-    var_flat = (
-        res.var_state.flatten().double().cpu().numpy()
-        if cfg.prior_index == 2 else None
-    )
+    before = snapshot()
+    with span("medgp.train.bucket"):
+        t0 = time.perf_counter()
+        if mesh is None:
+            res = train_one_patient(spec, batch_data(b, device), inits, **kw)
+        else:
+            step = sharded_train_step(spec, mesh, inits, **kw)
+            res = take_rows(step(pad_batch_to(batch_data(b, device), round_up(B, mesh.world))), B)
+        with span("medgp.train.fetch"):
+            theta = res.theta.double().cpu().numpy()  # waits for the device
+            dt = time.perf_counter() - t0
+            init_theta = res.init_theta.double().cpu().numpy()
+            flags = res.flag.cpu().numpy()
+            nobs = res.n_obs.cpu().numpy()
+            losses = res.loss.double().cpu().numpy()
+            evals = int(res.n_evals.sum())
+            var_flat = (
+                res.var_state.flatten().double().cpu().numpy()
+                if cfg.prior_index == 2 else None
+            )
     log.info(
         "trained bucket n_max=%d B=%d on %d device(s) (%s) in %.2fs (%.2f patients/s, "
         "%d objective+gradient evaluations)",
@@ -160,7 +164,7 @@ def _train_bucket(cfg, spec, b: PaddedBatch, bidx, inits, device, metrics, mesh)
         "train", bucket=bidx, n_max=b.n_max, batch=len(b), devices=_world(mesh),
         device=str(device), seconds=dt, patients_per_sec=len(b) / dt,
         evaluations=evals, evaluations_per_sec=evals / dt, nlml=losses,
-        trained=int(flags.sum()),
+        trained=int(flags.sum()), **since(before),
     )
     return theta, init_theta, flags, losses, nobs, var_flat
 
@@ -570,6 +574,8 @@ def test_cohort(
 
     etime keeps the JAX package's meaning: the bucket's wall time,
     transfers and synchronisation included, divided by its predictions.
+    Each `test` record (one per bucket and mode) carries what the table of
+    spans and counters (utils/metrics.py) gained in it.
     """
     unknown = [m for m in modes if m not in TEST_MODES]
     if unknown:
@@ -612,16 +618,18 @@ def test_cohort(
             total_obs = int(np.sum(b.mask))
             res_by_mode, etime_by_mode = {}, {}
             for m in modes:
-                t0 = time.perf_counter()
-                res = impute_bucket(
-                    spec, theta, b, device, update=m == "mean_w_update",
-                    prior=prior, learn_rate=cfg.online_learn_rate,
-                    momentum=cfg.online_momentum, mesh=mesh,
-                )
-                res_by_mode[m] = OnlineResult(
-                    *(x.cpu() for x in res)  # waits for the device
-                )
-                dt = time.perf_counter() - t0
+                before = snapshot()
+                with span("medgp.test.bucket"):
+                    t0 = time.perf_counter()
+                    res = impute_bucket(
+                        spec, theta, b, device, update=m == "mean_w_update",
+                        prior=prior, learn_rate=cfg.online_learn_rate,
+                        momentum=cfg.online_momentum, mesh=mesh,
+                    )
+                    res_by_mode[m] = OnlineResult(
+                        *(x.cpu() for x in res)  # waits for the device
+                    )
+                    dt = time.perf_counter() - t0
                 etime_by_mode[m] = dt / max(total_obs, 1)
                 log.info(
                     "tested bucket fold=%s mode=%s n_max=%d B=%d on %d device(s) (%s) "
@@ -631,7 +639,7 @@ def test_cohort(
                     "test", fold=int(fold), mode=m, n_max=b.n_max,
                     batch=len(b), devices=W, device=str(device), seconds=dt,
                     predictions=total_obs,
-                    sec_per_prediction=etime_by_mode[m],
+                    sec_per_prediction=etime_by_mode[m], **since(before),
                 )
 
             for i, pan in enumerate(b.pans):
