@@ -22,7 +22,9 @@ Phases (any failure raises and the script exits non-zero):
      output equals its transpose and a member's alone, bitwise;
   4. one canonical objective+gradient batch (B=128, n=512, bench.py's
      protocol) through the kernels against the plain path, and its
-     evaluations per second; then the restart screen at one full chunk,
+     evaluations per second; the fused objective's θ prologue and gradient
+     epilogue (csrc/theta.cuh) against their twins at B=128, n=512, bitwise
+     alike on repeat, and timed; then the restart screen at one full chunk,
      one objective+gradient evaluation at a full train bucket and one
      test-stage chunk, as utils/hbm.py sizes them at n=512, each with its
      peak device memory against the free memory its budget was taken from;
@@ -177,8 +179,8 @@ from medgp_tpu_torch.infer.online import online_impute, unique_times
 from medgp_tpu_torch.infer.vi import advi_fit
 from medgp_tpu_torch.models.gp import PatientData, objective_and_grad
 from medgp_tpu_torch.models.params import LMCSMSpec, theta_from_numpy
-from medgp_tpu_torch.models.priors import hier_gamma_prior
-from medgp_tpu_torch.ops import cuda_build, cuda_chol, cuda_gram
+from medgp_tpu_torch.models.priors import clamp_a_elements, hier_gamma_prior
+from medgp_tpu_torch.ops import cuda_build, cuda_chol, cuda_gram, objective
 from medgp_tpu_torch.ops.nlml import jittered_chol_solve
 from medgp_tpu_torch.cluster.pipeline import kernel_clustering_fold
 from medgp_tpu_torch.infer.map_train import train_one_patient
@@ -225,6 +227,10 @@ K4_REL = 1e-4
 #     the objective's value 1e-4 relative (tests/test_pallas_chol.py:134).
 GRAD_TOL = 2e-3
 VALUE_REL = 1e-4
+# The θ prologue and the gradient epilogue (csrc/theta.cuh): relative to
+#     each output's largest entry; they sum over R, H and n in another order
+#     than the twins (FMA chains and a tree against cuBLAS and torch.sum).
+THETA_KERNEL_REL = 1e-5
 
 # The train stage of the smoke, cut to run in seconds: 16 restarts (of
 # 1,000) and top_iteration_num 2 (of 40), i.e. two varEM warm rounds of 100
@@ -384,6 +390,8 @@ KERNELS = {
     "chol_solve": "k3",
     "qmat": "k4",
     "tri_inv": "k5",
+    "theta_prologue": "theta_prologue",
+    "theta_epilogue": "theta_epilogue",
 }
 
 
@@ -411,6 +419,8 @@ TWINS = (
     (cuda_chol, "chol_solve", cuda_chol.chol_solve_plain),
     (cuda_chol, "qmat", cuda_chol.qmat_plain),
     (cuda_chol, "tri_inv", cuda_chol.tri_inv_plain),
+    (objective, "theta_prologue", objective.theta_prologue_plain),
+    (objective, "theta_epilogue", objective.theta_epilogue_plain),
 )
 
 
@@ -437,7 +447,8 @@ _launches_at_reset = {}
 
 def _launch_counts():
     table = metrics.snapshot()
-    return {name: int(table[k + ".launches"]) for name, k in KERNELS.items()}
+    # the θ kernels' counters appear at their first launch
+    return {name: int(table.get(k + ".launches", 0)) for name, k in KERNELS.items()}
 
 
 def reset_launches():
@@ -871,6 +882,73 @@ def objective_batch(dev, batch=128, n=512, steps=12):
           f"{rates['plain']:.1f} through the plain path")
     return rates
 
+
+def compare_theta_kernels(dev, batch=128, n=512):
+    """The fused objective's θ prologue and gradient epilogue against their
+    twins at the train bucket's shape, under the batched hier-gamma prior
+    with an A-element in ten clamped: each output within THETA_KERNEL_REL
+    of its largest entry, and bitwise alike on repeat. Returns the rows of the
+    kernels line (times by CUDA events, bound from the bytes each reads
+    once and writes once)."""
+    spec = LMCSMSpec(Q, D, R)
+    data = random_patients(dev, batch, n, 6)
+    data.mask[: batch // 2, n - 100:] = 0.0  # half the batch padded
+    th = random_thetas(dev, spec, batch, 6)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    clamp = torch.rand((batch, Q * D * R), generator=gen, device=dev) < 0.1
+    prior = clamp_a_elements(hier_gamma_prior(spec, beta_lam=0.01, device=dev).expand(batch),
+                             spec, clamp)
+    pro_args = (th, data.y, data.meta, data.mask, prior, spec)
+    out = objective.theta_prologue(*pro_args)
+    again = objective.theta_prologue(*pro_args)
+    want = objective.theta_prologue_plain(*pro_args)
+    dB = torch.randn((batch, Q, D, D), generator=gen, device=dev)
+    dmu, dv = (torch.randn((batch, Q), generator=gen, device=dev) for _ in range(2))
+    dKm = torch.randn((batch, n, n), generator=gen, device=dev)
+    mult = torch.randint(1, 4, (batch,), generator=gen, device=dev, dtype=torch.int32)
+    d_value = torch.ones(batch, device=dev)
+    ok = torch.rand(batch, generator=gen, device=dev) < 0.9
+    epi_args = (th, dB, dmu, dv, dKm, mult, data.meta, data.mask, d_value, ok, prior, spec)
+    g = objective.theta_epilogue(*epi_args)
+    g2 = objective.theta_epilogue(*epi_args)
+    g_want = objective.theta_epilogue_plain(*epi_args)
+    torch.cuda.synchronize()
+    rel = {}  # each output's max abs err over its largest entry
+    names = ("B", "mu", "v", "noise", "y_eff", "lp", "n_eff")
+    for name, a, b, w in zip(names + ("dtheta",), out + (g,), again + (g2,), want + (g_want,)):
+        check(torch.equal(a, b), f"theta kernels: {name} differs between two runs")
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        rel[name] = err / scale if scale else err
+        check(err <= THETA_KERNEL_REL * scale,
+              f"theta kernels: {name} max abs err {err} > {THETA_KERNEL_REL} x {scale}")
+    check(bool((g[~ok] == 0).all()), "theta epilogue: a row that is not ok has a gradient")
+    H, reps = spec.n_hyp, 20
+    # bytes: theta and the prior's fields (14 bytes a hyper) in, y, meta,
+    # mask in and noise, y_eff out (20 bytes an observation), B, mu, v, lp,
+    # n_eff out; the epilogue reads dKm's diagonal, dB, dmu, dv, meta, mask
+    # and writes dtheta
+    pro_bytes = batch * (18 * H + 20 * n + 4 * (Q * D * D + 2 * Q + 2))
+    epi_bytes = batch * (22 * H + 12 * n + 4 * (Q * D * D + 2 * Q) + 9)
+    rows = {}
+    for name, fn, plain, args, flops, nbytes in (
+        ("theta_prologue", objective.theta_prologue, objective.theta_prologue_plain, pro_args,
+         batch * 2 * Q * D * D * R, pro_bytes),
+        ("theta_epilogue", objective.theta_epilogue, objective.theta_epilogue_plain, epi_args,
+         batch * 4 * Q * D * R * D, epi_bytes),
+    ):
+        bound_ms, bound_by = bound(flops, nbytes)
+        mine = {k: v for k, v in rel.items() if (k == "dtheta") == (name == "theta_epilogue")}
+        rows[name] = dict(
+            max_abs_err=max(mine.values()),  # relative to each output's scale
+            ms=cuda_ms(lambda: fn(*args), reps), plain_ms=cuda_ms(lambda: plain(*args), reps),
+            device_ms=graph_ms(lambda: fn(*args), reps),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"{name} B={batch} n={n}: max abs err over max |twin| "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in mine.items()})} (tol "
+              f"{THETA_KERNEL_REL:g}), bitwise equal on repeat; kernel {rows[name]['ms']:.4f} ms "
+              f"(device alone, CUDA graph: {rows[name]['device_ms']:.4f} ms), twin "
+              f"{rows[name]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return rows
 
 
 def random_patients(dev, batch, n, seed):
@@ -2888,6 +2966,7 @@ def main():
     phase_done("gram_symmetry_and_batch_invariance")
 
     rates = objective_batch(dev)
+    theta_rows = compare_theta_kernels(dev)
     torch.cuda.empty_cache()
     phase_done("objective batch")
     memory_budgets(dev)
@@ -2906,7 +2985,8 @@ def main():
 
     tr_s, tr = run_path(
         "train", ["train", *base],
-        ("gram_lmcsm", "chol_solve", "qmat", "gram_lmcsm_bwd"),
+        ("gram_lmcsm", "chol_solve", "qmat", "gram_lmcsm_bwd", "theta_prologue",
+         "theta_epilogue"),
     )
     check_train_outputs(cfg, recs)
     with open(os.path.join(cfg.exp_log_dir, "metrics.jsonl")) as f:
@@ -3015,6 +3095,10 @@ def main():
              # the CLI `hmc` paths run K5's kernels inside each K4 launch only
              inside_qmat_by_path={k: v for k, v in by_path["qmat"].items()
                                   if k.startswith("hmc_")}),
+        *(dict(row(name, "theta.cuh", "none: the glue XLA fuses around the Pallas kernels",
+                   theta_rows[name], "B=128 n=512 Q=5 D=24 R=8"),
+               device_ms=theta_rows[name]["device_ms"])
+          for name in ("theta_prologue", "theta_epilogue")),
     ]
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}; "
           f"objective+gradient evals/s at B=128 n=512: {rates['kernels']:.1f}")

@@ -18,7 +18,10 @@ from medgp_tpu_torch.ops import cuda_gram
 from medgp_tpu_torch.ops.gram import (
     cross_gram_lmcsm, diag_lmcsm, gram_se, gram_sm, sm_base, squared_dist,
 )
-from medgp_tpu_torch.ops.nlml import Posterior, mask_gram, masked_nlml, predict
+from medgp_tpu_torch.ops.nlml import (
+    NLMLResult, Posterior, mask_gram, masked_nlml, predict,
+)
+from medgp_tpu_torch.ops.objective import LMCSMObjective, fusable
 from medgp_tpu_torch.utils import metrics
 
 
@@ -109,9 +112,22 @@ def nlml_fn(
     """Build `loss(theta (B, H)) -> (nlml_map (B,), NLMLResult)` for a padded
     batch: exact-inference NLML (c_inference_exact.cpp:29-152) minus the
     log-prior (c_inference_prior.cpp:59-151); +inf where the factorization
-    failed or the patient has <= 2 observations (c_objective_one.cpp:51)."""
+    failed or the patient has <= 2 observations (c_objective_one.cpp:51).
+
+    The LMC-SM kernel with the zero mean and a prior without KDE samples
+    (or none) takes one autograd node, `ops/objective.py:LMCSMObjective`,
+    for a (B, H) theta; every other spec, mean, prior or theta shape takes
+    the composition below under autograd. On the fused path only `value`
+    carries a gradient: its NLMLResult fields carry none (the posterior
+    paths, which need one through L or alpha, call `masked_nlml`)."""
+    fused = fusable(spec, prior)
 
     def loss(theta):
+        if fused and theta.dim() == 2:
+            value, nlml, L, alpha, ok, mult = LMCSMObjective.apply(
+                theta, spec, data, prior, max_retries
+            )
+            return value, NLMLResult(nlml=nlml, ok=ok, L=L, alpha=alpha, mult=mult)
         K = noiseless_gram(spec, theta, data, masked=True)
         nv = noise_variance(spec, theta, data.meta)
         mean = spec.mean_vector(theta, data.meta)
@@ -139,35 +155,36 @@ def objective_and_grad(
 
     `idx` (k,) selects the patients of `data` (and the rows of a batched
     `prior`) that the k thetas belong to; None means all of them. One
-    backward pass serves the batch: the losses are summed with failed
-    elements replaced by 0, so an inf never reaches autograd. The gradient
-    is masked by the prior's `grad_mask` (clamped hypers do not move) and
-    zeroed where the evaluation failed, is not finite, or the patient has
-    <= 2 observations (gp.py:141-162 in the JAX package).
+    backward pass serves the batch: each value's cotangent is 1 where the
+    element is ok and 0 where it failed, so an inf never reaches autograd.
+    The gradient is masked by the prior's `grad_mask` (clamped hypers do
+    not move) and zeroed where the evaluation failed, is not finite, or
+    the patient has <= 2 observations (gp.py:141-162 in the JAX package).
 
     Each call is the span `medgp.objective`, with `.forward` (K1, K3 and
-    the jitter loop) and `.backward` (the autograd call: K4, K2) inside it
-    (utils/metrics.py)."""
+    the jitter loop; on the fused path the θ prologue first) and
+    `.backward` (the autograd call: K4, K2; on the fused path the θ
+    epilogue last) inside it (utils/metrics.py)."""
+    gmask = None if prior is None else prior.grad_mask()
 
     def f(theta, idx=None):
         with metrics.span("medgp.objective"):
-            d, pr = data, prior
+            d, pr, gm = data, prior, gmask
             if idx is not None:
                 d = data.rows(idx)
                 if pr is not None and pr.active.dim() == 2:
-                    pr = pr.rows(idx)
+                    pr, gm = pr.rows(idx), gm[idx]
             with torch.enable_grad():
                 th = theta.detach().requires_grad_()
                 with metrics.span("medgp.objective.forward"):
                     value, res = nlml_fn(spec, d, pr, max_retries)(th)
                     ok = res.ok & (d.n_obs > 2)
-                    total = torch.where(ok, value, torch.zeros_like(value)).sum()
                 with metrics.span("medgp.objective.backward"):
-                    (g,) = torch.autograd.grad(total, th)
-            if pr is not None:
-                g = g * pr.grad_mask()
+                    (g,) = torch.autograd.grad(value, th, ok.to(value.dtype))
+            if gm is not None:
+                g = g * gm
             ok = ok & torch.all(torch.isfinite(g), dim=-1)
-            g = torch.where(ok[:, None], g, torch.zeros_like(g))
+            g = torch.where(ok[:, None], g, 0.0)
             return value.detach(), g, ok
 
     return f

@@ -154,6 +154,28 @@ def log_prior(prior: PriorSpec, theta: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.where(sel, lp, zero), dim=-1)
 
 
+def log_prior_grad(prior: PriorSpec, theta: torch.Tensor) -> torch.Tensor:
+    """d log_prior / d theta (..., H) in closed form, for priors without
+    KDE samples: -(h - m) / var (normal) and -sign(h - m) / b (Laplace,
+    0 at h = m as autograd's abs gives), times h where the hyper is
+    exp-transformed; 0 on every other hyper."""
+    if prior.kde_samples is not None:
+        raise ValueError("log_prior_grad: KDE priors take log_prior under autograd")
+    h = torch.where(prior.exp_tf, torch.exp(theta), theta)
+    use_normal = prior.ptype == PRIOR_NORMAL
+    use_laplace = prior.ptype == PRIOR_LAPLACE
+    one = torch.ones_like(prior.scale)
+    var_safe = torch.where(use_normal, torch.clamp(prior.scale, min=1e-300), one)
+    b_safe = torch.where(use_laplace, torch.clamp(prior.scale, min=1e-300), one)
+    diff = h - prior.loc
+    zero = torch.zeros_like(diff)
+    g = torch.where(use_normal, -diff / var_safe, zero) + torch.where(
+        use_laplace, -torch.sign(diff) / b_safe, zero
+    )
+    g = torch.where(prior.exp_tf, g * h, g)
+    return torch.where(prior.active & (use_normal | use_laplace), g, zero)
+
+
 def set_kde_prior(
     prior: PriorSpec,
     index: int,

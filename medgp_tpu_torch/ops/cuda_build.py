@@ -42,6 +42,13 @@ _SIGNATURES = {
     # dK, t, meta, B, mu, v, mask, dB_part, dmv_part, dB, dmu, dv,
     # batch, n, Q, D, stream
     "medgp_gram_bwd": [_P] * 12 + [_I] * 4 + [_P],
+    # theta, y, meta, mask, the prior's active, exp_tf, ptype, loc, scale,
+    # B, mu, v, noise, y_eff, lp, n_eff, batch, n, Q, D, R, prior_stride,
+    # stream
+    "medgp_theta_prologue": [_P] * 16 + [_I] * 6 + [_P],
+    # theta, dB, dmu, dv, dKm, mult, meta, mask, d_value, ok, the prior's
+    # five fields, dtheta, batch, n, Q, D, R, prior_stride, stream
+    "medgp_theta_epilogue": [_P] * 16 + [_I] * 6 + [_P],
 }
 
 

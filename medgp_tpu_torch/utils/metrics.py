@@ -21,8 +21,12 @@ carry (parallel/runner.py writes the difference of two snapshots into each
     device's timeline, where it would read as device time;
   * `count(name, k)` adds k to the integer counter `name`, always: the
     kernels' wrappers count `<k>.systems` (the batch of every call) and
-    `<k>.launches` (the card's launches), k1..k5, and the jitter loop
-    `k3.retry_systems`.
+    `<k>.launches` (the card's launches), k1..k5, the jitter loop
+    `k3.retry_systems`, the fused objective's backward
+    `objective.fused_systems` (ops/objective.py:LMCSMObjective, the rows
+    of every backward it runs), and its two kernels'
+    `theta_prologue.launches` / `theta_epilogue.launches` (card only,
+    present from their first launch).
 """
 
 from __future__ import annotations
@@ -109,6 +113,7 @@ for _k in ("k1", "k2", "k3", "k4", "k5"):
     count(_k + ".systems", 0)
     count(_k + ".launches", 0)
 count("k3.retry_systems", 0)
+count("objective.fused_systems", 0)
 
 
 class MetricsWriter:

@@ -13,6 +13,13 @@ another order, as tests/test_pallas_chol.py:134); gradients rtol/atol
 2e-3 relative to the gradient's scale (tests/test_pallas_chol.py:136,
 tests/test_pallas_gram.py:83); the inits 1e-6 relative (the same float32
 arithmetic, with log from two libraries).
+
+The port's LMC-SM objective with the zero mean is one autograd node
+(`ops/objective.py:LMCSMObjective`), so `objective_and_grad` here runs it;
+`test_fused_objective_matches_the_composition` holds it against the
+composition the other specs and priors take, and the float64 tests of its
+prologue and epilogue twins hold them to 1e-10 of the composition's own
+functions and of autograd through them.
 """
 
 import numpy as np
@@ -35,6 +42,8 @@ from medgp_tpu_torch.models import gp as tgp  # noqa: E402
 from medgp_tpu_torch.models import params as tparams  # noqa: E402
 from medgp_tpu_torch.models import priors as tpriors  # noqa: E402
 from medgp_tpu_torch.ops import nlml as tnlml  # noqa: E402
+from medgp_tpu_torch.ops import objective as tobjective  # noqa: E402
+from medgp_tpu_torch.utils import metrics as tmetrics  # noqa: E402
 
 Q, D, R, N = 2, 3, 1, 128
 VAL_REL = 1e-4
@@ -277,3 +286,230 @@ def test_random_inits_lie_on_the_grid_and_match_jax(monkeypatch):
     ))
     got = tinits.random_inits(0, tspec, bounds, S).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+# -- the fused LMC-SM objective (ops/objective.py:LMCSMObjective) ----------
+#
+# `objective_and_grad` takes one autograd node for the LMC-SM kernel with
+# the zero mean and a prior without KDE samples; `gp.fusable` returning
+# False gives the composition (noiseless_gram + masked_nlml + log_prior
+# under autograd), which SE, SM, non-zero means and KDE priors take.
+
+FUSED_CASES = (
+    "hier_gamma_clamped", "test_prior", "no_prior", "idx_subset", "padded",
+    "two_observations", "factorization_fails", "jitter_retry", "detached_rows",
+)
+
+
+def _hier_prior_clamped(tspec, jspec):
+    """A batched hier-gamma prior with A-elements clamped row by row."""
+    clamp = np.zeros((3, Q * D * R), bool)
+    clamp[0, 1] = clamp[1, [0, 4]] = clamp[2, 5] = True
+    tprior = tpriors.clamp_a_elements(
+        tpriors.hier_gamma_prior(tspec, 0.5).expand(3), tspec, torch.as_tensor(clamp))
+    jprior = [jpriors.clamp_a_elements(jpriors.hier_gamma_prior(jspec, 0.5), jspec,
+                                       jnp.asarray(c)) for c in clamp]
+    return tprior, jprior
+
+
+def _fused_case(case, tspec, jspec):
+    """(data, theta, torch prior, JAX priors per row or None, idx)."""
+    from medgp_tpu.parallel import runner as jrunner
+    from medgp_tpu_torch.parallel import runner as trunner
+
+    n_valid = dict(padded=(128, 17, 64), two_observations=(128, 2, 60)).get(
+        case, (128, 100, 70))
+    t, y, meta, mask = _patients(93, n_valid=n_valid)
+    theta = _thetas(94)
+    tprior, jprior = _hier_prior_clamped(tspec, jspec)
+    idx = None
+    if case == "test_prior":
+        mode = theta[0].copy()
+        mode[jspec.n_lik + np.array([0, 3])] = 0.0
+        theta[:, jspec.n_lik + np.array([0, 3])] = 0.0
+        tprior = trunner._test_prior(tspec, mode, "cpu")
+        jprior = [jrunner._test_prior(jspec, mode)] * 3
+    elif case == "no_prior":
+        tprior, jprior = None, [None] * 3
+    elif case == "idx_subset":
+        idx = torch.tensor([2, 0])
+    elif case == "factorization_fails":
+        theta[2, tparams.cov_slices(tspec)["kappa"]] = 100.0  # exp overflows: K is inf
+    data = tgp.PatientData(*(torch.as_tensor(x) for x in (t, y, meta, mask)))
+    with_jax = case in ("hier_gamma_clamped", "test_prior", "no_prior")
+    return data, torch.as_tensor(theta), tprior, jprior if with_jax else None, idx
+
+
+def _fail_first_factorization(monkeypatch, row):
+    """K3 reports row `row` of a full batch as failed at multiplier 1, so the
+    jitter loop factors it again at 2."""
+    orig = tnlml.cuda_chol.chol_solve
+
+    def chol_solve(K, noise, y):
+        L, alpha, linvd = orig(K, noise, y)
+        if K.shape[0] == 3:
+            L[row, 0, 0] = float("nan")
+        return L, alpha, linvd
+    monkeypatch.setattr(tnlml.cuda_chol, "chol_solve", chol_solve)
+
+
+def _detach_second_half(monkeypatch):
+    """The benchmark's `half` fault: the second half of every batch's
+    values leaves autograd."""
+    orig = tgp.nlml_fn
+
+    def nlml_fn(*a, **k):
+        loss = orig(*a, **k)
+
+        def faulty(theta):
+            value, res = loss(theta)
+            h = value.shape[0] // 2
+            return torch.cat([value[:h], value[h:].detach()]), res
+        return faulty
+    monkeypatch.setattr(tgp, "nlml_fn", nlml_fn)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_objective_matches_the_composition(case, monkeypatch):
+    """Value, gradient and ok of the fused objective against the
+    composition (and, for the first three cases, the JAX package's XLA
+    path), at VAL_REL and `_close`."""
+    monkeypatch.setenv("MEDGP_PALLAS_CHOL", "0")
+    monkeypatch.setenv("MEDGP_PALLAS_GRAM", "0")
+    jspec, tspec = jparams.LMCSMSpec(Q, D, R), tparams.LMCSMSpec(Q, D, R)
+    data, theta, tprior, jprior, idx = _fused_case(case, tspec, jspec)
+    if case == "jitter_retry":
+        _fail_first_factorization(monkeypatch, row=1)
+    th = theta if idx is None else theta[idx]
+    fused_before = tmetrics.snapshot()["objective.fused_systems"]
+    if case == "detached_rows":
+        whole = tgp.objective_and_grad(tspec, data, tprior)(th)
+        _detach_second_half(monkeypatch)
+    v, g, ok = tgp.objective_and_grad(tspec, data, tprior)(th, idx)
+    assert tmetrics.snapshot()["objective.fused_systems"] - fused_before == (
+        2 * th.shape[0] if case == "detached_rows" else th.shape[0])
+    _, res = tgp.nlml_fn(tspec, data if idx is None else data.rows(idx),
+                         None if tprior is None or idx is None else tprior.rows(idx))(th)
+    with monkeypatch.context() as m:
+        m.setattr(tgp, "fusable", lambda *a: False)
+        v_c, g_c, ok_c = tgp.objective_and_grad(tspec, data, tprior)(th, idx)
+        _, res_c = tgp.nlml_fn(tspec, data if idx is None else data.rows(idx),
+                               None if tprior is None or idx is None else tprior.rows(idx))(th)
+    assert tmetrics.snapshot()["objective.fused_systems"] - fused_before == (
+        2 * th.shape[0] if case == "detached_rows" else th.shape[0])
+    assert ok.tolist() == ok_c.tolist()
+    assert res.mult.tolist() == res_c.mult.tolist()
+    assert torch.equal(torch.isinf(v), torch.isinf(v_c))
+    np.testing.assert_allclose(v[ok].numpy(), v_c[ok].numpy(), rtol=VAL_REL)
+    _close(g.numpy(), g_c.numpy())
+
+    want_ok = dict(two_observations=[True, False, True],
+                   factorization_fails=[True, True, False]).get(case, [True] * th.shape[0])
+    assert ok.tolist() == want_ok
+    assert torch.all(torch.isinf(v[~ok])) and torch.all(g[~ok] == 0)
+    if case == "jitter_retry":
+        assert res.mult.tolist() == [1, 2, 1]
+    if case == "detached_rows":
+        assert torch.all(g[1:] == 0) and torch.all(g_c[1:] == 0)
+        np.testing.assert_array_equal(g[:1].numpy(), whole[1][:1].numpy())
+    if tprior is not None:
+        gm = tprior.grad_mask() if idx is None or tprior.active.dim() == 1 \
+            else tprior.grad_mask()[idx]
+        assert torch.all(g[(gm == 0).expand_as(g)] == 0)
+    if jprior is not None:
+        want = [jgp.objective_and_grad(
+            jspec, jgp.PatientData(*(jnp.asarray(x[b].numpy()) for x in data)), jprior[b],
+        )(jnp.asarray(theta[b].numpy())) for b in range(3)]
+        np.testing.assert_allclose(v.numpy(), [float(w[0]) for w in want], rtol=VAL_REL)
+        assert ok.tolist() == [bool(w[2]) for w in want]
+        _close(g.numpy(), np.stack([np.asarray(w[1]) for w in want]))
+
+
+TWIN_PRIORS = ("hier_gamma_clamped", "test_prior", "no_prior", "laplace_at_loc")
+
+
+def _twin_prior(kind, tspec, theta):
+    if kind == "hier_gamma_clamped":
+        pr = _hier_prior_clamped(tspec, jparams.LMCSMSpec(Q, D, R))[0]
+        return pr._replace(loc=pr.loc.double(), scale=pr.scale.double())
+    if kind == "test_prior":
+        a = torch.zeros(Q * D * R, dtype=torch.bool)
+        a[[0, 3]] = True
+        return tpriors.clamp_a_elements(
+            tpriors.empty_prior(tspec.n_hyp, dtype=torch.float64), tspec, a)
+    if kind == "laplace_at_loc":
+        # Laplace terms whose hyper sits exactly on loc: sign 0, as abs's
+        # gradient gives; one plain, one through exp
+        pr = tpriors.hier_gamma_prior(tspec, 0.3, dtype=torch.float64)
+        sl = tparams.cov_slices(tspec)
+        j, jk = sl["a"].start + 2, sl["kappa"].start + 1
+        ptype, loc = pr.ptype.clone(), pr.loc.clone()
+        ptype[j] = tpriors.PRIOR_LAPLACE
+        loc[j] = theta[0, j]
+        loc[jk] = torch.exp(theta[0, jk])
+        return pr._replace(ptype=ptype, loc=loc, scale=pr.scale.clone())
+    return None
+
+
+def _twin_inputs(seed):
+    rng = np.random.default_rng(seed)
+    tspec = tparams.LMCSMSpec(Q, D, R)
+    t, y, meta, mask = _patients(seed, n_valid=(128, 100, 70))
+    theta = torch.as_tensor(_thetas(seed + 1).astype(np.float64))
+    k, n = theta.shape[0], N
+    dB = torch.as_tensor(rng.normal(size=(k, Q, D, D)))
+    dmu, dv = (torch.as_tensor(rng.normal(size=(k, Q))) for _ in range(2))
+    dKm = torch.as_tensor(rng.normal(size=(k, n, n)))
+    mult = torch.tensor([1, 3, 2], dtype=torch.int32)
+    d_value = torch.tensor([1.0, 0.5, 0.0], dtype=torch.float64)
+    return tspec, (torch.as_tensor(x) for x in (t, y, meta, mask)), theta, (
+        dB, dmu, dv, dKm, mult, d_value)
+
+
+@pytest.mark.parametrize("kind", TWIN_PRIORS)
+def test_theta_prologue_twin_matches_the_composition(kind):
+    """In float64, to 1e-10: B, mu, v, the masked noise and y, the log
+    prior and the valid count against the composition's own functions."""
+    tspec, (t, y, meta, mask), theta, _ = _twin_inputs(95)
+    prior = _twin_prior(kind, tspec, theta)
+    data = tgp.PatientData(t.double(), y.double(), meta, mask.double())
+    B, mu, v, noise, y_eff, lp, n_eff = tobjective.theta_prologue(
+        theta, data.y, data.meta, data.mask, prior, tspec)
+    p = tspec.unpack(theta)
+    want = dict(
+        B=tspec.coregional_B(p["A"], p["kappa"]), mu=p["mu"], v=p["v"],
+        noise=tgp.noise_variance(tspec, theta, data.meta) * data.mask,
+        y_eff=data.y * data.mask,
+        lp=torch.zeros(3, dtype=torch.float64) if prior is None
+        else tpriors.log_prior(prior, theta),
+        n_eff=data.n_obs)
+    for name, got in zip(want, (B, mu, v, noise, y_eff, lp, n_eff)):
+        np.testing.assert_allclose(got.numpy(), want[name].numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(want[name].abs().max()), err_msg=name)
+
+
+@pytest.mark.parametrize("kind", TWIN_PRIORS)
+def test_theta_epilogue_twin_matches_autograd_of_the_composition(kind):
+    """In float64, to 1e-10: dtheta from given dB, dmu, dv, dKm, mult and
+    d_value against autograd through coregional_B, exp, noise_variance and
+    log_prior; rows not ok are 0, and a Laplace hyper on its loc gets sign
+    0."""
+    tspec, (t, y, meta, mask), theta, (dB, dmu, dv, dKm, mult, d_value) = _twin_inputs(96)
+    prior = _twin_prior(kind, tspec, theta)
+    mask = mask.double()
+    ok = torch.tensor([True, True, False])
+    got = tobjective.theta_epilogue(theta, dB, dmu, dv, dKm, mult, meta, mask, d_value, ok,
+                                    prior, tspec)
+    th = theta.clone().requires_grad_()
+    p = tspec.unpack(th)
+    B = tspec.coregional_B(p["A"], p["kappa"])
+    noise = tgp.noise_variance(tspec, th, meta) * mask
+    dnoise = mult.double()[:, None] * torch.diagonal(dKm, dim1=-2, dim2=-1)
+    total = (dB * B).sum() + (dmu * p["mu"]).sum() + (dv * p["v"]).sum() + (dnoise * noise).sum()
+    if prior is not None:
+        total = total - (d_value * tpriors.log_prior(prior, th)).sum()
+    (want,) = torch.autograd.grad(total, th)
+    want = torch.where(ok[:, None], want, torch.zeros_like(want))
+    assert torch.all(got[2] == 0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-10 * float(want.abs().max()))

@@ -224,7 +224,7 @@ def test_train_records_carry_spans_and_count_every_k3_system(tmp_path, monkeypat
             assert r["span_s." + name] >= r["self_s." + name] >= 0, name
         assert r["k3.systems"] == S * r["batch"] + obj + r["k3.retry_systems"]
         assert r["k1.systems"] == S * r["batch"] + obj
-        assert r["k2.systems"] == r["k4.systems"] == obj
+        assert r["k2.systems"] == r["k4.systems"] == r["objective.fused_systems"] == obj
         assert r["calls.medgp.objective"] == calls
         assert r["evaluations"] >= obj > 0
         assert r["k5.systems"] == 0
@@ -251,8 +251,9 @@ def test_test_records_carry_the_online_spans_and_kernel_systems(tmp_path):
     assert r["span_s.medgp.test.bucket"] >= \
         r["span_s.medgp.online.update"] + r["span_s.medgp.online.predict"]
     assert r["k1.systems"] > 0 and r["k3.systems"] > 0 and r["k5.systems"] > 0
-    # every update is one objective call: K2 and K4 count its systems
-    assert r["k2.systems"] == r["k4.systems"] > 0
+    # every update is one objective call, through the fused objective: K2,
+    # K4 and its backward count its systems
+    assert r["k2.systems"] == r["k4.systems"] == r["objective.fused_systems"] > 0
     assert {"medgp.test.bucket", "medgp.online.update", "medgp.online.predict",
             "medgp.objective"} <= _host_names(prof)
 
@@ -266,6 +267,7 @@ def test_records_written_without_a_profiler_carry_counters_and_no_spans(tmp_path
     runner.test_cohort(cfg, recs, modes=("mean_w_update",), device="cpu")
     (r,) = _records(cfg, "test")
     assert r["k3.systems"] > 0 and r["k3.launches"] == 0
+    assert r["objective.fused_systems"] == r["k4.systems"] > 0
     assert r.get("calls.medgp.test.bucket", 0) == 0
     assert r.get("span_s.medgp.online.update", 0) == 0
 
