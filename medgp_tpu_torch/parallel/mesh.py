@@ -76,6 +76,7 @@ from medgp_tpu_torch.models.params import REF_PI, KernelSpec, LMCSMSpec
 from medgp_tpu_torch.models.priors import PriorSpec, log_prior
 from medgp_tpu_torch.ops import cuda_chol
 from medgp_tpu_torch.ops.gram import cross_gram_lmcsm
+from medgp_tpu_torch.utils import metrics
 from medgp_tpu_torch.utils.hbm import device_bytes
 
 
@@ -571,20 +572,28 @@ def _factorize(rows: Rows, y: torch.Tensor, b: int, mesh=None) -> Factor:
 def _factor_with_retry(spec, theta, t, y, meta, mask, b, max_retries, mesh=None):
     """The jitter retry over the whole factorization, mult = 1 ..
     1 + max_retries (mesh.py:764-777): one host read of ok per attempt,
-    over a mesh the minimum of every rank's. Returns (mult, Factor, ok)."""
-    nat = _natural(spec, theta)
-    y = y * mask
-    fac = None
-    for mult in range(1, max_retries + 2):
-        fac = None  # the last attempt's rows are freed before the next
-        fac = _factorize(_gram_rows(spec, nat, theta, mult, t, meta, mask, b, mesh), y, b, mesh)
-        ok = torch.isfinite(fac.zsq) & torch.isfinite(fac.logdet)
-        if mesh is not None:
-            ok = all_reduce(mesh, ok.to(torch.float32).reshape(1), dist.ReduceOp.MIN)[0] > 0
-        ok = bool(ok)
-        if ok:
-            break
-    return mult, fac, ok
+    over a mesh the minimum of every rank's. Returns (mult, Factor, ok).
+    The span `medgp.large.factor`; every attempt counts one
+    `large.factorizations`, every attempt after the first one
+    `large.retry_factorizations`."""
+    with metrics.span("medgp.large.factor"):
+        nat = _natural(spec, theta)
+        y = y * mask
+        fac = None
+        for mult in range(1, max_retries + 2):
+            fac = None  # the last attempt's rows are freed before the next
+            metrics.count("large.factorizations")
+            if mult > 1:
+                metrics.count("large.retry_factorizations")
+            fac = _factorize(_gram_rows(spec, nat, theta, mult, t, meta, mask, b, mesh),
+                             y, b, mesh)
+            ok = torch.isfinite(fac.zsq) & torch.isfinite(fac.logdet)
+            if mesh is not None:
+                ok = all_reduce(mesh, ok.to(torch.float32).reshape(1), dist.ReduceOp.MIN)[0] > 0
+            ok = bool(ok)
+            if ok:
+                break
+        return mult, fac, ok
 
 
 def _nlml(fac: Factor, mask: torch.Tensor, ok: bool) -> torch.Tensor:
@@ -799,28 +808,33 @@ def large_patient_objective(
     gradient is multiplied by the prior's grad_mask; ok also needs
     sum(mask) > 2 and a finite gradient, and a failed evaluation reads
     +inf with a zero gradient. `base` reuses a `large_patient_nlml_diff`
-    callable. Over a mesh every rank gets the same value and gradient."""
+    callable. Over a mesh every rank gets the same value and gradient.
+    Each call is the span `medgp.large.objective`, its blocked gradient
+    the span `medgp.large.backward`, and counts one `large.evaluations`."""
     if base is None:
         base = large_patient_nlml_diff(spec, blocks, max_retries, mesh)
     enough = bool(torch.sum(mask) > 2)
 
     def f(theta, idx=None):
-        with torch.enable_grad():
-            th = theta.detach().requires_grad_()
-            v, ok = base(th[0], t, y, meta, mask)
-            v = v.reshape(1)
+        metrics.count("large.evaluations")
+        with metrics.span("medgp.large.objective"):
+            with torch.enable_grad():
+                th = theta.detach().requires_grad_()
+                v, ok = base(th[0], t, y, meta, mask)
+                v = v.reshape(1)
+                if prior is not None:
+                    v = v - log_prior(prior, th).reshape(1)
+                if bool(ok):
+                    with metrics.span("medgp.large.backward"):
+                        (g,) = torch.autograd.grad(v.sum(), th)
+                else:
+                    g = torch.zeros_like(th)
             if prior is not None:
-                v = v - log_prior(prior, th).reshape(1)
-            if bool(ok):
-                (g,) = torch.autograd.grad(v.sum(), th)
-            else:
-                g = torch.zeros_like(th)
-        if prior is not None:
-            g = g * prior.grad_mask()
-        okv = ok.reshape(1) & enough & torch.all(torch.isfinite(g), dim=-1)
-        g = torch.where(okv[:, None], g, torch.zeros_like(g))
-        v = torch.where(okv, v.detach(), torch.full_like(v, math.inf))
-        return v, g, okv
+                g = g * prior.grad_mask()
+            okv = ok.reshape(1) & enough & torch.all(torch.isfinite(g), dim=-1)
+            g = torch.where(okv[:, None], g, torch.zeros_like(g))
+            v = torch.where(okv, v.detach(), torch.full_like(v, math.inf))
+            return v, g, okv
 
     return f
 
@@ -830,13 +844,16 @@ def large_patient_screen(spec: LMCSMSpec, blocks: int, max_retries: int = 10,
     """`screen(thetas (S, H), t, y, meta, mask) -> (values (S,), oks (S,))`:
     S value-only evaluations, one after another, so only one
     factorization's workspace is live at a time (mesh.py:797-824); failed
-    ones read +inf."""
+    ones read +inf. Each call is the span `medgp.large.screen` and counts
+    S `large.screen_values`."""
     base = large_patient_nlml(spec, blocks, max_retries, mesh)
 
     def screen(thetas, t, y, meta, mask):
-        vals, oks = zip(*(base(th, t, y, meta, mask) for th in thetas))
-        vals, oks = torch.stack(vals), torch.stack(oks)
-        vals = torch.where(oks & torch.isfinite(vals), vals, torch.full_like(vals, math.inf))
-        return vals, oks
+        metrics.count("large.screen_values", thetas.shape[0])
+        with metrics.span("medgp.large.screen"):
+            vals, oks = zip(*(base(th, t, y, meta, mask) for th in thetas))
+            vals, oks = torch.stack(vals), torch.stack(oks)
+            vals = torch.where(oks & torch.isfinite(vals), vals, torch.full_like(vals, math.inf))
+            return vals, oks
 
     return screen

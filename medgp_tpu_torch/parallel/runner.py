@@ -207,10 +207,13 @@ def train_cohort(
     LMC-SM patients above the large-patient threshold (`large_threshold`,
     default cfg.large_patient_threshold) train after the buckets, one at a
     time, by row blocks (`train_one_large_patient`, from the first
-    cfg.large_patient_restarts restarts), each with a `train_large` record
-    (pan, n_obs, devices, blocks, block_rows, seconds, nlml, trained); checkpoints stay per
-    bucket. SE and SM patients above it train in ordinary buckets, as in
-    the JAX package (medgp_tpu/parallel/runner.py:189-208, 355-386)."""
+    cfg.large_patient_restarts restarts), each in the span
+    `medgp.train.large` and with a `train_large` record (pan, n_obs,
+    devices, blocks, block_rows, seconds, nlml, trained, and what the
+    table of spans and counters gained over the patient, as the `train`
+    records carry); checkpoints stay per bucket. SE and SM patients above
+    it train in ordinary buckets, as in the JAX package
+    (medgp_tpu/parallel/runner.py:189-208, 355-386)."""
     spec = cfg.spec()
     thr = cfg.large_patient_threshold if large_threshold is None else large_threshold
     large = []
@@ -228,14 +231,16 @@ def train_cohort(
         _train_buckets(cfg, spec, records, inits, max_batch, ckpt_dir, device,
                        metrics, write, out, mesh)
     for rec in large:
-        t0 = time.perf_counter()
-        res = train_one_large_patient(
-            spec, rec.t, rec.y, rec.meta, inits[:cfg.large_patient_restarts],
-            prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
-            top_iters=cfg.top_iteration_num,
-            sub_opt_iter=cfg.iteration_num_per_update, device=device, mesh=mesh,
-        )
-        dt = time.perf_counter() - t0
+        before = snapshot()
+        with span("medgp.train.large"):
+            t0 = time.perf_counter()
+            res = train_one_large_patient(
+                spec, rec.t, rec.y, rec.meta, inits[:cfg.large_patient_restarts],
+                prior_mode=cfg.prior_index, eta=cfg.eta, beta_lam=cfg.beta_lam,
+                top_iters=cfg.top_iteration_num,
+                sub_opt_iter=cfg.iteration_num_per_update, device=device, mesh=mesh,
+            )
+            dt = time.perf_counter() - t0
         log.info(
             "trained large patient %s (n=%d, by row blocks over %d device(s)) in "
             "%.1fs: flag=%s loss=%.3f", rec.pan, rec.n_obs, _world(mesh), dt,
@@ -244,7 +249,7 @@ def train_cohort(
         metrics.write(
             "train_large", pan=rec.pan, n_obs=rec.n_obs, devices=_world(mesh),
             blocks=res["blocks"], block_rows=res["block_rows"],
-            seconds=dt, nlml=res["loss"], trained=int(res["flag"]),
+            seconds=dt, nlml=res["loss"], trained=int(res["flag"]), **since(before),
         )
         out[rec.pan] = res
         if write:

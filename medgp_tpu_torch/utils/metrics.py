@@ -26,7 +26,13 @@ carry (parallel/runner.py writes the difference of two snapshots into each
     `objective.fused_systems` (ops/objective.py:LMCSMObjective, the rows
     of every backward it runs), and its two kernels'
     `theta_prologue.launches` / `theta_epilogue.launches` (card only,
-    present from their first launch).
+    present from their first launch). The row-blocked large patient
+    (parallel/mesh.py) counts `large.evaluations` (value+gradient calls),
+    `large.screen_values` (restarts valued), `large.factorizations`
+    (blocked factorizations, every jitter attempt) and
+    `large.retry_factorizations` (the attempts after the first), and
+    runner.train_cohort writes what the table gained over each large
+    patient into its `train_large` record.
 """
 
 from __future__ import annotations
@@ -114,6 +120,8 @@ for _k in ("k1", "k2", "k3", "k4", "k5"):
     count(_k + ".launches", 0)
 count("k3.retry_systems", 0)
 count("objective.fused_systems", 0)
+for _k in ("evaluations", "screen_values", "factorizations", "retry_factorizations"):
+    count("large." + _k, 0)
 
 
 class MetricsWriter:
